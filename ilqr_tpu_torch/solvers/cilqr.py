@@ -1,0 +1,278 @@
+"""Constrained iLQR solver (CILQR), eager and batched -- the port's reference
+solver.
+
+Counterpart of ``ilqr_tpu/solvers/cilqr.py``, matching ``CILQRSolver::solve``
+(reference src/cilqr_solver.cpp:85-153) in both constraint modes (exponential
+barrier / augmented Lagrangian), with the lambda schedule, the backtracking
+line search and its acceptance rule, warm starting and the
+``LQRSolveStatus`` state machine, including the reference's quirks:
+
+- a CONVERGED line-search trial is *not* adopted (src/cilqr_solver.cpp:
+  352-361 + :113-116);
+- ALM duals update only on line-search exhaustion (:377-379);
+- lambda reacts only to {BACKWARD,FORWARD}_PASS_FAIL and RUNNING;
+  SMALL_STEP and CONVERGED leave it unchanged (:118-125).
+
+Every tensor carries a leading scenario axis B. Per-row control flow is
+masked: an iteration runs while any row is active, and a row's state only
+changes while it is. The line search walks the alphas serially, stopping
+each row at its first hit and the loop when every row has stopped -- the
+same results as the JAX package's breadth-first search at any width.
+
+This solver is the port's CPU path and the float64 comparator of the CUDA
+kernel (``ops/cuda/cilqr_kernel.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ilqr_tpu_torch.config import GlobalConfig
+from ilqr_tpu_torch.models.bicycle import kinematic_jacobians, rollout
+from ilqr_tpu_torch.ops.cost import cost_and_derivatives, total_cost
+from ilqr_tpu_torch.ops.riccati import backward_pass, forward_pass
+from ilqr_tpu_torch.types import (
+    CILQRCarry,
+    CILQRConfig,
+    CILQRWeights,
+    Scenario,
+    SolveStats,
+    SolveStatus,
+    numpy_dtype,
+)
+from ilqr_tpu_torch.utils.refline import ReferenceLine, RoutingLine
+
+__all__ = [
+    "CILQRConfig",
+    "CILQRWeights",
+    "CILQRCarry",
+    "CILQRSolver",
+    "SolveStatus",
+    "solve",
+    "solve_from_controls",
+]
+
+
+def alpha_schedule(min_alpha: float):
+    """alpha = 1, 0.5, ... while alpha > min_alpha
+    (reference src/cilqr_solver.cpp:354): 20 trials at the default 1e-6."""
+    alphas = []
+    a = 1.0
+    while a > min_alpha:
+        alphas.append(a)
+        a *= 0.5
+    return tuple(alphas)
+
+
+class _LineSearchResult(NamedTuple):
+    accepted: torch.Tensor
+    converged: torch.Tensor
+    small_step: torch.Tensor
+    new_u: torch.Tensor
+    new_x: torch.Tensor
+
+
+def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
+                 alm_mu, searching, row_limits) -> _LineSearchResult:
+    """Backtracking line search (reference src/cilqr_solver.cpp:354-372) for
+    the rows in ``searching``; each row stops at its first hit."""
+    done = ~searching
+    acc = torch.zeros_like(done)
+    conv = torch.zeros_like(done)
+    small = torch.zeros_like(done)
+    best_u, best_x = u, x
+    for t, alpha in enumerate(alpha_schedule(cfg.min_alpha)):
+        if bool(done.all()):
+            break
+        nu, nx = forward_pass(u, x, d, K, alpha, w.dt, w.wheelbase, cfg.reference_point)
+        nJ = total_cost(cfg, w, nu, nx, scenario, alm_rho, alm_mu, row_limits)
+        decay = ori_cost - nJ
+        # the convergence check precedes the acceptance check at alpha == 1
+        # (src/cilqr_solver.cpp:358-365)
+        conv_now = ~done & (torch.abs(decay) < w.convergence_threshold)
+        if t > 0:
+            conv_now = torch.zeros_like(done)
+        approx = -(alpha * alpha * dV1 + alpha * dV2)
+        # the reference divides unguarded; accept-at-inf without NaN
+        ratio = torch.where(approx != 0, decay / approx, torch.full_like(decay, float("inf")))
+        acc_now = ~done & ~conv_now & (decay > 0) & (
+            (approx < 0) | (ratio > w.accept_step_threshold))
+        best_u = torch.where(acc_now[:, None, None], nu, best_u)
+        best_x = torch.where(acc_now[:, None, None], nx, best_x)
+        if t > 0:
+            small = small | acc_now
+        acc = acc | acc_now
+        conv = conv | conv_now
+        done = done | acc_now | conv_now
+    return _LineSearchResult(acc, conv, small, best_u, best_x)
+
+
+def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Scenario,
+                        alm_rho0=None, alm_mu0=None, row_limits=None):
+    """The solve loop from initial controls u0 (B, N, 2).
+
+    Returns (u (B,N,2), x (B,N+1,4), SolveStats, alm_rho (B,), alm_mu (B,N,C)).
+    ``alm_rho0``/``alm_mu0`` default to the reference's cold reset
+    (src/cilqr_solver.cpp:88-93).
+    """
+    if cfg.riccati_impl != "scan":
+        raise NotImplementedError(f"riccati_impl={cfg.riccati_impl!r} is not ported")
+    Bn = x0.shape[0]
+    dev = x0.device
+    alm = cfg.solve_type == "alm"
+    rho = w.alm_rho_init.expand(Bn).clone() if alm_rho0 is None else alm_rho0
+    mu = x0.new_zeros((Bn, cfg.N, cfg.num_constraints)) if alm_mu0 is None else alm_mu0
+    u = u0
+    x = rollout(x0, u0, w.dt, w.wheelbase, cfg.reference_point)
+    lamb = w.init_lamb.expand(Bn).clone()
+    status = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    itr = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    done = torch.zeros(Bn, dtype=torch.bool, device=dev)
+    converged = torch.zeros_like(done)
+    overflow = torch.zeros_like(done)
+
+    def code(s):
+        return torch.tensor(s, dtype=torch.int32, device=dev)
+
+    for _ in range(cfg.max_iter):
+        active = ~done
+        if not bool(active.any()):
+            break
+        # the iteration's cost (== ori_cost of src/cilqr_solver.cpp:342) and
+        # its derivatives from one pass
+        ori_cost, der = cost_and_derivatives(cfg, w, u, x, scenario, rho, mu, row_limits)
+        A, Bm = kinematic_jacobians(x[:, :-1], u, w.dt, w.wheelbase, cfg.reference_point)
+        bw = backward_pass(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb)
+        ls = _line_search(cfg, w, u, x, bw.d, bw.K, ori_cost, bw.dV1, bw.dV2, scenario,
+                          rho, mu, active & ~bw.fail, row_limits)
+
+        bp_failed = active & bw.fail
+        accepted = active & ~bw.fail & ls.accepted
+        converged_now = active & ~bw.fail & ls.converged
+        exhausted = active & ~bw.fail & ~ls.accepted & ~ls.converged
+
+        u = torch.where(accepted[:, None, None], ls.new_u, u)
+        x = torch.where(accepted[:, None, None], ls.new_x, x)
+        new_status = torch.where(
+            bp_failed, code(SolveStatus.BACKWARD_PASS_FAIL),
+            torch.where(converged_now, code(SolveStatus.CONVERGED),
+                        torch.where(exhausted, code(SolveStatus.FORWARD_PASS_FAIL),
+                                    torch.where(ls.small_step & accepted,
+                                                code(SolveStatus.FORWARD_PASS_SMALL_STEP),
+                                                code(SolveStatus.RUNNING)))))
+        status = torch.where(active, new_status, status)
+
+        if alm:
+            mu = torch.where(exhausted[:, None, None], der.alm_mu_next, mu)
+            rho = torch.where(exhausted,
+                              torch.minimum((1.0 + w.alm_gamma) * rho, w.max_rho), rho)
+
+        is_fail = bp_failed | exhausted
+        lamb = torch.where(
+            is_fail, torch.maximum(w.lamb_amplify, lamb * w.lamb_amplify),
+            torch.where(active & (status == SolveStatus.RUNNING), lamb * w.lamb_decay, lamb))
+        overflow_now = active & (lamb > w.max_lamb)
+        converged = converged | converged_now
+        overflow = overflow | overflow_now
+        done = done | overflow_now | converged_now
+        itr = itr + active.to(torch.int32)
+
+    stats = SolveStats(
+        iters=itr,
+        status=status,
+        converged=converged,
+        lamb_overflow=overflow,
+        final_cost=total_cost(cfg, w, u, x, scenario, rho, mu, row_limits),
+        final_lamb=lamb,
+    )
+    return u, x, stats, rho, mu
+
+
+def solve(cfg: CILQRConfig, w: CILQRWeights, x0, scenario: Scenario,
+          carry: Optional[CILQRCarry] = None, row_limits=None):
+    """One full CILQR solve per scenario row.
+
+    Args:
+      x0: (B, 4) initial ego states.
+      scenario: batched ``Scenario``; ``obs_preds`` is the (B, M, N+1, 3)
+        prediction window starting at the current tick.
+      carry: warm-start + ALM state from the previous solve (or None).
+
+    Returns: (u (B,N,2), x (B,N+1,4), SolveStats, CILQRCarry).
+    """
+    Bn = x0.shape[0]
+    if carry is None:
+        carry = CILQRCarry.init(cfg, w, Bn)
+    first = carry.is_first
+    # ALM state reset policy (reference src/cilqr_solver.cpp:88-93)
+    if cfg.solve_type == "alm" and cfg.use_last_solution:
+        alm_rho0 = torch.where(first, w.alm_rho_init, carry.alm_rho)
+        alm_mu0 = torch.where(first[:, None, None], torch.zeros_like(carry.alm_mu),
+                              carry.alm_mu)
+    else:
+        alm_rho0 = alm_mu0 = None
+    # zero controls, or the one-step-shifted previous solution when warm
+    # starting (reference src/cilqr_solver.cpp:155-180)
+    u0 = x0.new_zeros((Bn, cfg.N, cfg.nu))
+    if cfg.use_last_solution:
+        shifted = torch.cat([carry.last_u[:, 1:], carry.last_u[:, -1:]], dim=1)
+        u0 = torch.where(first[:, None, None], u0, shifted)
+    u, x, stats, rho, mu = solve_from_controls(cfg, w, x0, u0, scenario, alm_rho0,
+                                               alm_mu0, row_limits)
+    new_carry = CILQRCarry(last_u=u, is_first=torch.zeros_like(first), alm_rho=rho,
+                           alm_mu=mu)
+    return u, x, stats, new_carry
+
+
+class CILQRSolver:
+    """Reference-style OO wrapper (include/cilqr_solver.hpp:31-41): construct
+    from a config, call ``solve(x0, ref_line, ref_velo, obs_preds,
+    road_borders)`` repeatedly for one scenario; warm start and ALM duals
+    are carried across calls."""
+
+    def __init__(self, config: GlobalConfig, dtype=torch.float64, device="cpu",
+                 num_obstacles: Optional[int] = None, **cfg_overrides):
+        self.gc = config
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.cfg = CILQRConfig.from_global_config(config, num_obstacles, **cfg_overrides)
+        self.weights = CILQRWeights.from_global_config(config, dtype, self.device)
+        self.reset()
+
+    def reset(self):
+        self.carry = CILQRCarry.init(self.cfg, self.weights, 1)
+
+    def solve(self, x0, ref_line, ref_velo, obs_preds, road_borders):
+        """Host arrays / ReferenceLine / RoutingLines in, numpy out."""
+        scenario = self.make_scenario(ref_line, ref_velo, obs_preds, road_borders)
+        x0 = torch.as_tensor(np.asarray(x0), dtype=self.dtype, device=self.device)[None]
+        u, x, stats, self.carry = solve(self.cfg, self.weights, x0, scenario, self.carry)
+        self.last_stats = SolveStats(*(v[0].cpu().numpy() for v in (
+            stats.iters, stats.status, stats.converged, stats.lamb_overflow,
+            stats.final_cost, stats.final_lamb)))
+        return u[0].cpu().numpy(), x[0].cpu().numpy()
+
+    def make_scenario(self, ref_line, ref_velo, obs_preds, road_borders) -> Scenario:
+        npd = numpy_dtype(self.dtype)
+        N = self.cfg.N
+        if isinstance(ref_line, ReferenceLine):
+            ref_arr = ref_line.as_array(dtype=npd)
+        else:
+            ref_arr = np.asarray(ref_line, dtype=npd)
+        if isinstance(obs_preds, (list, tuple)):
+            window = np.stack([
+                (rl.as_array(npd) if isinstance(rl, RoutingLine)
+                 else np.asarray(rl, dtype=npd))[: N + 1]
+                for rl in obs_preds
+            ], axis=0) if len(obs_preds) else np.zeros((0, N + 1, 3), npd)
+        else:
+            window = np.asarray(obs_preds, dtype=npd)[:, : N + 1]
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, npd), device=self.device)[None]
+
+        return Scenario(ref_line=t(ref_arr), ref_velo=t(ref_velo), obs_preds=t(window),
+                        road_borders=t(road_borders))

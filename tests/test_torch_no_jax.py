@@ -1,0 +1,30 @@
+"""The PyTorch port imports neither JAX, flax nor the JAX package.
+
+A fresh interpreter in which importing ``jax``, ``flax`` or ``ilqr_tpu``
+raises imports every module of ``ilqr_tpu_torch`` and the chip smoke script.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "ilqr_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import ilqr_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ilqr_tpu_torch.__path__, "ilqr_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
