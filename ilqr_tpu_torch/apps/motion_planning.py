@@ -8,7 +8,7 @@ yet, so ``--no-viz`` is required.
 
 Usage:
     python -m ilqr_tpu_torch.apps.motion_planning -c configs/scenario_two_straight.yaml \
-        --no-viz [--ticks N] [--noise] [--seed S] [--f32] [--device cuda]
+        --no-viz [--ticks N] [--noise] [--seed S] [--f32] [--device cpu]
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no-viz", action="store_true", help="run headless, no rendering")
     parser.add_argument("--f32", action="store_true", help="solve in float32")
-    parser.add_argument("--device", default="cpu", help="torch device (default: cpu)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda; raises without a GPU)")
     args = parser.parse_args(argv)
     if not args.no_viz:
         raise NotImplementedError("rendering is not ported yet; pass --no-viz")
@@ -46,14 +47,15 @@ def main(argv=None) -> int:
     from ilqr_tpu_torch.config import GlobalConfig
     from ilqr_tpu_torch.sim.mpc import run_mpc
     from ilqr_tpu_torch.sim.scenario import build_scenario_setup
-    from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
+    from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, entry_device
 
+    device = entry_device(args.device)
     dtype = torch.float32 if args.f32 else torch.float64
     log.info("config path: %s", args.config)
     gc = GlobalConfig.from_file(args.config)
     setup = build_scenario_setup(gc, noise=args.noise, seed=args.seed)
     cfg = CILQRConfig.from_global_config(gc)
-    w = CILQRWeights.from_global_config(gc, dtype=dtype, device=args.device)
+    w = CILQRWeights.from_global_config(gc, dtype=dtype, device=device)
 
     def on_tick(t, u, x, stats):
         log.info("tick %3d: iters=%3d status=%d converged=%s cost=%.3f",

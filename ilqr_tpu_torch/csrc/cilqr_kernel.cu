@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel of ilqr_tpu/ops/pallas/cilqr_kernel.py: the
 // `kernel` built by `_build_kernel` (:80-1222) and launched by `call_kernel`
-// (:1545-1594), in its main-path variant -- barrier constraints, rear-center
-// bicycle, warm-start controls, serial line search, squared-distance
+// (:1545-1594), in these variants: both bicycle reference points (rear
+// center; gravity center with its Jacobian quirk), both penalty families
+// (exponential barrier; augmented Lagrangian with the duals as input and
+// output), warm-start controls, serial line search, squared-distance
 // first-min projection over a per-scenario reference-line window with
 // per-step row limits. It computes what that kernel computes (reference
 // semantics: src/cilqr_solver.cpp:85-461 of the C++ project), not its
@@ -23,9 +25,11 @@
 // ilqr_tpu_torch/ops/cuda/cilqr_kernel.py for the packing and the plain
 // PyTorch version of the same function.
 //
-// Built without fast-math; the scalar type is a template parameter: float
-// is the main path, double exists to check semantics against the plain
-// version without float32 chaos.
+// Built without fast-math; the scalar type, the reference point and the
+// penalty family are template parameters: float is the production type,
+// double exists to check semantics against the plain version without
+// float32 chaos. The rear-center barrier instantiation is the code of the
+// first port (the variant branches are `if constexpr`).
 
 #include <cuda_runtime.h>
 
@@ -52,6 +56,7 @@ struct Weights {
   T init_lamb, lamb_decay, lamb_amplify, max_lamb, conv_thresh, accept_thresh, exp_clip;
 };
 constexpr int kNumWeights = 26;
+constexpr int kNumAlmWeights = 3;  // alm_gamma, max_rho, max_mu follow in _WEIGHT_ORDER
 
 struct RowLimits {
   int r[kMaxSteps];
@@ -73,6 +78,28 @@ struct Problem {
   int B, N, M, W, max_iter, n_alphas;
 };
 
+// ALM arguments: the duals in and out, C = 8 + 2M columns, and the
+// dual-update weights.
+template <typename T>
+struct AlmArgs {
+  const T* __restrict__ mu_in;   // (C, N, B)
+  const T* __restrict__ rho_in;  // (B)
+  T* __restrict__ mu_out;        // (C, N, B): the solve's working duals
+  T* __restrict__ rho_out;       // (B)
+  T gamma, max_rho, max_mu;
+};
+
+// Per-solve ALM state: empty in the barrier builds, so their per-thread
+// context is the first port's, byte for byte.
+template <typename T, bool kAlm>
+struct AlmState {};
+
+template <typename T>
+struct AlmState<T, true> {
+  AlmArgs<T> a;
+  T rho;  // the penalty weight
+};
+
 __device__ __forceinline__ float sin_(float a) { return sinf(a); }
 __device__ __forceinline__ double sin_(double a) { return sin(a); }
 __device__ __forceinline__ float cos_(float a) { return cosf(a); }
@@ -81,6 +108,8 @@ __device__ __forceinline__ float tan_(float a) { return tanf(a); }
 __device__ __forceinline__ double tan_(double a) { return tan(a); }
 __device__ __forceinline__ float exp_(float a) { return expf(a); }
 __device__ __forceinline__ double exp_(double a) { return exp(a); }
+__device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
+__device__ __forceinline__ double sqrt_(double a) { return sqrt(a); }
 __device__ __forceinline__ float hypot_(float a, float b) { return hypotf(a, b); }
 __device__ __forceinline__ double hypot_(double a, double b) { return hypot(a, b); }
 
@@ -93,9 +122,9 @@ struct Traj {
   T rx[kMaxSteps], ry[kMaxSteps], rh[kMaxSteps];
 };
 
-// Per-thread constants of one solve.
-template <typename T>
-struct Ctx {
+// Per-thread constants of one solve, and its ALM state.
+template <typename T, bool kGravity, bool kAlm>
+struct Ctx : AlmState<T, kAlm> {
   Weights<T> w;
   Problem<T> p;
   int b, N, M;
@@ -103,33 +132,118 @@ struct Ctx {
   int lim[kMaxSteps];
 
   __device__ T at(const T* a, int row) const { return a[(size_t)row * p.B + b]; }
+
+  // ALM dual of constraint column `col` at horizon step k (ALM builds
+  // only). The duals live in mu_out itself (scenario-fastest like every
+  // other array), so no per-thread copy bounds the obstacle count. Columns
+  // follow the reference's dual layout (src/cilqr_solver.cpp:622-676): 0-3
+  // the control bounds on steps 0..N-1; 4-7 velocity and road-border
+  // bounds, then 8+2j / 9+2j obstacle j's front / rear disc, on steps 1..N.
+  __device__ T& mu(int col, int k) const {
+    const int n = col < 4 ? k : k - 1;
+    return this->a.mu_out[((size_t)col * N + n) * p.B + b];
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ T barrier(const Ctx<T>& c, T con, T q1, T q2) {
+template <typename T, bool G, bool A>
+__device__ __forceinline__ T barrier(const Ctx<T, G, A>& c, T con, T q1, T q2) {
   T e = q2 * con;
   e = e > c.w.exp_clip ? c.w.exp_clip : e;
   return q1 * exp_(e);
 }
 
+// Gradient and Hessian factors of one penalty term: its gradient is
+// g * dc/dx and its Hessian h * dc/dx dc/dx' (src/cilqr_solver.cpp:692-713).
 template <typename T>
-__device__ __forceinline__ void propagate(const Ctx<T>& c, T& x, T& y, T& v, T& h, T ua,
+struct Pen {
+  T g, h;
+};
+
+// Penalty value of constraint `col` at step k (include/cilqr_solver.hpp:
+// 80-83). Barrier: q1 exp(q2 c). ALM: with s = c + mu / rho, 0.5 rho s^2
+// when s > 0, else 0. rho = 0 (scenario_three_straight.yaml) gives
+// s = 0/0 = NaN and an inactive term, as in the JAX package: the division
+// is not guarded, and the build does not use fast-math.
+template <typename T, bool G, bool A>
+__device__ __forceinline__ T pen_val(const Ctx<T, G, A>& c, T con, T q1, T q2, int col, int k) {
+  if constexpr (A) {
+    const T s = con + c.mu(col, k) / c.rho;
+    return s > T(0) ? T(0.5) * c.rho * s * s : T(0);
+  } else {
+    return barrier(c, con, q1, q2);
+  }
+}
+
+// Barrier: g = q2 b, h = q2^2 b. ALM: g = h = rho s when s > 0 -- the
+// reference's rank-1 Hessian, kept as the JAX package keeps it.
+template <typename T, bool G, bool A>
+__device__ __forceinline__ Pen<T> pen(const Ctx<T, G, A>& c, T con, T q1, T q2, int col, int k) {
+  if constexpr (A) {
+    const T s = con + c.mu(col, k) / c.rho;
+    const T g = s > T(0) ? c.rho * s : T(0);
+    return {g, g};
+  } else {
+    const T bv = barrier(c, con, q1, q2);
+    return {q2 * bv, (q2 * q2) * bv};
+  }
+}
+
+// One step of the discrete bicycle (reference src/utils.cpp:265-279).
+template <typename T, bool G, bool A>
+__device__ __forceinline__ void propagate(const Ctx<T, G, A>& c, T& x, T& y, T& v, T& h, T ua,
                                           T us) {
   const T dt = c.w.dt;
-  const T nx = x + v * cos_(h) * dt;
-  const T ny = y + v * sin_(h) * dt;
-  const T nv = v + ua * dt;
-  const T nh = h + v * tan_(us) * dt / c.w.wb;
+  T nx, ny, nv, nh;
+  if constexpr (G) {
+    // slip angle beta = atan(tan(us) / 2), through sin/cos without atan:
+    // sin = (t/2) / sqrt(1 + t^2/4), cos = 1 / sqrt(1 + t^2/4)
+    // (JAX kernel `_beta_trig`, :292-298)
+    const T tn = tan_(us);
+    const T inv = T(1) / sqrt_(T(1) + T(0.25) * tn * tn);
+    const T sb = T(0.5) * tn * inv, cb = inv;
+    const T cyw = cos_(h), syw = sin_(h);
+    const T cby = cb * cyw - sb * syw;  // cos(beta + yaw)
+    const T sby = sb * cyw + cb * syw;  // sin(beta + yaw)
+    nx = x + v * cby * dt;
+    ny = y + v * sby * dt;
+    nv = v + ua * dt;
+    nh = h + T(2) * v * sb * dt / c.w.wb;
+  } else {
+    nx = x + v * cos_(h) * dt;
+    ny = y + v * sin_(h) * dt;
+    nv = v + ua * dt;
+    nh = h + v * tan_(us) * dt / c.w.wb;
+  }
   x = nx;
   y = ny;
   v = nv;
   h = nh;
 }
 
+// Front and rear disc centres of the ego footprint (src/utils.cpp:344-361):
+// rear center: front = position + wb (cos, sin), rear = position; gravity
+// center: +-wb/2 along the yaw.
+template <typename T, bool G, bool A>
+__device__ __forceinline__ void front_rear(const Ctx<T, G, A>& c, T px, T py, T cy, T sy, T& fx,
+                                           T& fy, T& rx, T& ry) {
+  if constexpr (G) {
+    const T hx = T(0.5) * (c.w.wb * cy), hy = T(0.5) * (c.w.wb * sy);
+    fx = px + hx;
+    fy = py + hy;
+    rx = px - hx;
+    ry = py - hy;
+  } else {
+    fx = px + c.w.wb * cy;
+    fy = py + c.w.wb * sy;
+    rx = px;
+    ry = py;
+  }
+}
+
 // Nearest window row of every state: first minimum of the squared distance
 // over rows [0, lim[k]) (strict < keeps the first index on ties).
-template <typename T>
-__device__ void project(const Ctx<T>& c, Traj<T>& t) {
+template <typename T, bool G, bool A>
+__device__ void project(const Ctx<T, G, A>& c, Traj<T>& t) {
   const Problem<T>& p = c.p;
   for (int k = 0; k <= c.N; ++k) {
     const T qx = t.px[k], qy = t.py[k];
@@ -154,8 +268,8 @@ __device__ void project(const Ctx<T>& c, Traj<T>& t) {
 
 // Ellipse safety margin of point (qx, qy) against obstacle j at step k
 // (reference src/utils.cpp:387-439); writes dc/dq when g is given.
-template <typename T>
-__device__ __forceinline__ T ellipse(const Ctx<T>& c, int j, int k, T qx, T qy, T* gx,
+template <typename T, bool G, bool A>
+__device__ __forceinline__ T ellipse(const Ctx<T, G, A>& c, int j, int k, T qx, T qy, T* gx,
                                      T* gy) {
   const Problem<T>& p = c.p;
   const int row = j * (c.N + 1) + k;
@@ -186,10 +300,10 @@ __device__ __forceinline__ T lateral(const Traj<T>& t, int k, T* ddx, T* ddy, T*
 }
 
 // Total cost of a projected trajectory (src/cilqr_solver.cpp:199-287):
-// tracking cost on steps 0..N, control cost and control-bound barriers on
-// steps 0..N-1, state, border and obstacle barriers on steps 1..N.
-template <typename T>
-__device__ T total_cost(const Ctx<T>& c, const Traj<T>& t) {
+// tracking cost on steps 0..N, control cost and control-bound penalties on
+// steps 0..N-1, state, border and obstacle penalties on steps 1..N.
+template <typename T, bool G, bool A>
+__device__ T total_cost(const Ctx<T, G, A>& c, const Traj<T>& t) {
   const Weights<T>& w = c.w;
   T J = T(0);
   for (int k = 0; k <= c.N; ++k) {
@@ -199,21 +313,26 @@ __device__ T total_cost(const Ctx<T>& c, const Traj<T>& t) {
     if (k < c.N) {
       const T ua = t.ua[k], us = t.us[k];
       J += w.w_acc * ua * ua + w.w_stl * us * us;
-      J += barrier(c, ua - w.acc_max, w.sq1, w.sq2) + barrier(c, w.acc_min - ua, w.sq1, w.sq2)
-         + barrier(c, us - w.stl_lim, w.sq1, w.sq2) + barrier(c, -w.stl_lim - us, w.sq1, w.sq2);
+      J += pen_val(c, ua - w.acc_max, w.sq1, w.sq2, 0, k) +
+           pen_val(c, w.acc_min - ua, w.sq1, w.sq2, 1, k) +
+           pen_val(c, us - w.stl_lim, w.sq1, w.sq2, 2, k) +
+           pen_val(c, -w.stl_lim - us, w.sq1, w.sq2, 3, k);
     }
     if (k >= 1) {
       const T v = t.pv[k];
-      J += barrier(c, v - w.velo_max, w.sq1, w.sq2) + barrier(c, w.velo_min - v, w.sq1, w.sq2);
+      J += pen_val(c, v - w.velo_max, w.sq1, w.sq2, 4, k) +
+           pen_val(c, w.velo_min - v, w.sq1, w.sq2, 5, k);
       T ddx, ddy, h, ds;
       const T cur_d = lateral(t, k, &ddx, &ddy, &h, &ds);
-      J += barrier(c, cur_d - c.up_bound, w.sq1, w.sq2)
-         + barrier(c, c.lo_bound - cur_d, w.sq1, w.sq2);
-      const T fx = t.px[k] + w.wb * cos_(t.ph[k]), fy = t.py[k] + w.wb * sin_(t.ph[k]);
+      J += pen_val(c, cur_d - c.up_bound, w.sq1, w.sq2, 6, k) +
+           pen_val(c, c.lo_bound - cur_d, w.sq1, w.sq2, 7, k);
+      T fx, fy, rx, ry;
+      front_rear(c, t.px[k], t.py[k], cos_(t.ph[k]), sin_(t.ph[k]), fx, fy, rx, ry);
       for (int j = 0; j < c.M; ++j) {
-        J += barrier(c, ellipse(c, j, k, fx, fy, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2);
-        J += barrier(c, ellipse(c, j, k, t.px[k], t.py[k], (T*)nullptr, (T*)nullptr), w.oq1,
-                     w.oq2);
+        J += pen_val(c, ellipse(c, j, k, fx, fy, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2,
+                     8 + 2 * j, k);
+        J += pen_val(c, ellipse(c, j, k, rx, ry, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2,
+                     9 + 2 * j, k);
       }
     }
   }
@@ -227,8 +346,8 @@ struct StepDerivs {
   T lx[4], lxx[4][4], lu[2], luu00, luu11;
 };
 
-template <typename T>
-__device__ void step_derivs(const Ctx<T>& c, const Traj<T>& t, int k, StepDerivs<T>& D) {
+template <typename T, bool G, bool A>
+__device__ void step_derivs(const Ctx<T, G, A>& c, const Traj<T>& t, int k, StepDerivs<T>& D) {
   const Weights<T>& w = c.w;
   const T dx = t.px[k] - t.rx[k], dy = t.py[k] - t.ry[k];
   const T dv = t.pv[k] - c.ref_velo, dh = t.ph[k] - t.rh[k];
@@ -244,32 +363,30 @@ __device__ void step_derivs(const Ctx<T>& c, const Traj<T>& t, int k, StepDerivs
   D.lu[0] = D.lu[1] = D.luu00 = D.luu11 = T(0);
   if (k < c.N) {
     const T ua = t.ua[k], us = t.us[k];
-    const T q2 = w.sq2, q22 = w.sq2 * w.sq2;
-    const T b0 = barrier(c, ua - w.acc_max, w.sq1, q2);
-    const T b1 = barrier(c, w.acc_min - ua, w.sq1, q2);
-    const T b2 = barrier(c, us - w.stl_lim, w.sq1, q2);
-    const T b3 = barrier(c, -w.stl_lim - us, w.sq1, q2);
-    D.lu[0] = T(2) * w.w_acc * ua + (q2 * b0 - q2 * b1);
-    D.lu[1] = T(2) * w.w_stl * us + (q2 * b2 - q2 * b3);
-    D.luu00 = T(2) * w.w_acc + (q22 * b0 + q22 * b1);
-    D.luu11 = T(2) * w.w_stl + (q22 * b2 + q22 * b3);
+    const Pen<T> p0 = pen(c, ua - w.acc_max, w.sq1, w.sq2, 0, k);
+    const Pen<T> p1 = pen(c, w.acc_min - ua, w.sq1, w.sq2, 1, k);
+    const Pen<T> p2 = pen(c, us - w.stl_lim, w.sq1, w.sq2, 2, k);
+    const Pen<T> p3 = pen(c, -w.stl_lim - us, w.sq1, w.sq2, 3, k);
+    D.lu[0] = T(2) * w.w_acc * ua + (p0.g - p1.g);
+    D.lu[1] = T(2) * w.w_stl * us + (p2.g - p3.g);
+    D.luu00 = T(2) * w.w_acc + (p0.h + p1.h);
+    D.luu11 = T(2) * w.w_stl + (p2.h + p3.h);
   }
   if (k >= 1) {
-    const T q2 = w.sq2, q22 = w.sq2 * w.sq2;
     const T v = t.pv[k];
-    const T b4 = barrier(c, v - w.velo_max, w.sq1, q2);
-    const T b5 = barrier(c, w.velo_min - v, w.sq1, q2);
-    D.lx[2] += q2 * b4 - q2 * b5;
-    D.lxx[2][2] += q22 * b4 + q22 * b5;
+    const Pen<T> p4 = pen(c, v - w.velo_max, w.sq1, w.sq2, 4, k);
+    const Pen<T> p5 = pen(c, w.velo_min - v, w.sq1, w.sq2, 5, k);
+    D.lx[2] += p4.g - p5.g;
+    D.lxx[2][2] += p4.h + p5.h;
     // road borders: gradient (+-gx, +-gy, 0, 0), zero at h == 0
     T ddx, ddy, h, ds;
     const T cur_d = lateral(t, k, &ddx, &ddy, &h, &ds);
-    const T b6 = barrier(c, cur_d - c.up_bound, w.sq1, q2);
-    const T b7 = barrier(c, c.lo_bound - cur_d, w.sq1, q2);
+    const Pen<T> p6 = pen(c, cur_d - c.up_bound, w.sq1, w.sq2, 6, k);
+    const Pen<T> p7 = pen(c, c.lo_bound - cur_d, w.sq1, w.sq2, 7, k);
     const T flip = ds < T(0) ? T(-1) : T(1);
     const T gpx = h > T(0) ? flip * (ddx / h) : T(0);
     const T gpy = h > T(0) ? flip * (ddy / h) : T(0);
-    const T gsum = q2 * b6 - q2 * b7, hsum = q22 * b6 + q22 * b7;
+    const T gsum = p6.g - p7.g, hsum = p6.h + p7.h;
     D.lx[0] += gsum * gpx;
     D.lx[1] += gsum * gpy;
     D.lxx[0][0] += hsum * gpx * gpx;
@@ -277,17 +394,25 @@ __device__ void step_derivs(const Ctx<T>& c, const Traj<T>& t, int k, StepDerivs
     D.lxx[1][1] += hsum * gpy * gpy;
     // obstacle ellipses, chained through the front/rear point Jacobians
     const T sy = sin_(t.ph[k]), cy = cos_(t.ph[k]);
-    const T fx = t.px[k] + w.wb * cy, fy = t.py[k] + w.wb * sy;
-    const T oq2 = w.oq2, oq22 = w.oq2 * w.oq2;
+    T fx, fy, rx, ry;
+    front_rear(c, t.px[k], t.py[k], cy, sy, fx, fy, rx, ry);
     for (int j = 0; j < c.M; ++j) {
       for (int front = 1; front >= 0; --front) {
         T gx, gy;
         const T m = front ? ellipse(c, j, k, fx, fy, &gx, &gy)
-                          : ellipse(c, j, k, t.px[k], t.py[k], &gx, &gy);
-        const T bj = barrier(c, m, w.oq1, oq2);
-        const T gcoef = oq2 * bj, hcoef = oq22 * bj;
-        // d(front)/d(yaw) = wb * (-sin, cos); the rear point is the state
-        const T g3 = front ? (-w.wb * sy) * gx + (w.wb * cy) * gy : T(0);
+                          : ellipse(c, j, k, rx, ry, &gx, &gy);
+        const Pen<T> pj = pen(c, m, w.oq1, w.oq2, front ? 8 + 2 * j : 9 + 2 * j, k);
+        const T gcoef = pj.g, hcoef = pj.h;
+        // d(point)/d(yaw): front (-s, c) and rear (s, -c) times wb/2 at the
+        // gravity center (JAX kernel :644-646); front wb (-s, c) and a
+        // fixed rear point at the rear center
+        T g3;
+        if constexpr (G) {
+          const T hw = T(0.5) * w.wb;
+          g3 = front ? (-hw * sy) * gx + (hw * cy) * gy : (hw * sy) * gx + (-hw * cy) * gy;
+        } else {
+          g3 = front ? (-w.wb * sy) * gx + (w.wb * cy) * gy : T(0);
+        }
         D.lx[0] += gcoef * gx;
         D.lx[1] += gcoef * gy;
         D.lx[3] += gcoef * g3;
@@ -305,13 +430,14 @@ __device__ void step_derivs(const Ctx<T>& c, const Traj<T>& t, int k, StepDerivs
   D.lxx[3][1] = D.lxx[1][3];
 }
 
-// Riccati backward pass with the rear-center Jacobians
-// (src/cilqr_solver.cpp:383-440, src/utils.cpp:285-342):
+// Riccati backward pass (src/cilqr_solver.cpp:383-440) with the bicycle
+// Jacobians of src/utils.cpp:285-342:
 // A = I + a02 e0e2' + a03 e0e3' + a12 e1e2' + a13 e1e3' + a32 e3e2',
-// B = dt e2e0' + b31 e3e1'. Returns false when some Q_uu is not positive
-// definite (the pass is then discarded).
-template <typename T>
-__device__ bool backward(const Ctx<T>& c, const Traj<T>& t, T lamb, T (*K)[8], T (*d)[2],
+// B = dt e2e0' + (b01 e0 + b11 e1 + b31 e3) e1', where b01 = b11 = 0 at the
+// rear center. Returns false when some Q_uu is not positive definite (the
+// pass is then discarded).
+template <typename T, bool G, bool A>
+__device__ bool backward(const Ctx<T, G, A>& c, const Traj<T>& t, T lamb, T (*K)[8], T (*d)[2],
                          T& dV1, T& dV2) {
   const T dt = c.w.dt, wb = c.w.wb;
   StepDerivs<T> D;
@@ -325,10 +451,38 @@ __device__ bool backward(const Ctx<T>& c, const Traj<T>& t, T lamb, T (*K)[8], T
   for (int k = c.N - 1; k >= 0; --k) {
     step_derivs(c, t, k, D);
     const T v = t.pv[k], yaw = t.ph[k], stl = t.us[k];
-    const T cyw = cos_(yaw), syw = sin_(yaw), cs = cos_(stl);
-    const T a02 = cyw * dt, a03 = -v * syw * dt, a12 = syw * dt, a13 = v * cyw * dt;
-    const T a32 = tan_(stl) * dt / wb;
-    const T b31 = (v * dt / wb) / (cs * cs);
+    const T cyw = cos_(yaw), syw = sin_(yaw);
+    T a02, a03, a12, a13, a32, b01, b11, b31;
+    if constexpr (G) {
+      // REFERENCE QUIRK, kept on purpose: the Jacobian's slip angle is
+      // atan(tan(stl / 2)) (src/utils.cpp:292; JAX kernel `_beta_jac_trig`
+      // :300-307), not the dynamics' atan(tan(stl) / 2); the derivative
+      // factor dbds is the exact d/dstl of the dynamics' beta.
+      const T tj = tan_(T(0.5) * stl);
+      const T ij = T(1) / sqrt_(T(1) + tj * tj);
+      const T sb = tj * ij, cb = ij;
+      const T tn = tan_(stl);
+      const T t2 = tn * tn;
+      const T dbds = T(0.5) * (T(1) + t2) / (T(1) + T(0.25) * t2);
+      const T cby = cb * cyw - sb * syw, sby = sb * cyw + cb * syw;
+      a02 = cby * dt;
+      a03 = -v * sby * dt;
+      a12 = sby * dt;
+      a13 = v * cby * dt;
+      a32 = T(2) * sb * dt / wb;
+      b01 = -v * sby * dt * dbds;
+      b11 = v * cby * dt * dbds;
+      b31 = (T(2) * v * dt / wb) * cb * dbds;
+    } else {
+      const T cs = cos_(stl);
+      a02 = cyw * dt;
+      a03 = -v * syw * dt;
+      a12 = syw * dt;
+      a13 = v * cyw * dt;
+      a32 = tan_(stl) * dt / wb;
+      b01 = b11 = T(0);
+      b31 = (v * dt / wb) / (cs * cs);
+    }
 
     T Qx[4], Qu[2], M1[4][4], Qxx[4][4], Qux[2][4];
     Qx[0] = D.lx[0] + Vx[0];
@@ -336,7 +490,11 @@ __device__ bool backward(const Ctx<T>& c, const Traj<T>& t, T lamb, T (*K)[8], T
     Qx[2] = D.lx[2] + (a02 * Vx[0] + a12 * Vx[1] + Vx[2] + a32 * Vx[3]);
     Qx[3] = D.lx[3] + (a03 * Vx[0] + a13 * Vx[1] + Vx[3]);
     Qu[0] = D.lu[0] + dt * Vx[2];
-    Qu[1] = D.lu[1] + b31 * Vx[3];
+    if constexpr (G) {
+      Qu[1] = D.lu[1] + (b01 * Vx[0] + b11 * Vx[1] + b31 * Vx[3]);
+    } else {
+      Qu[1] = D.lu[1] + b31 * Vx[3];
+    }
     for (int i = 0; i < 4; ++i) {  // M1 = V A
       M1[i][0] = V[i][0];
       M1[i][1] = V[i][1];
@@ -349,12 +507,26 @@ __device__ bool backward(const Ctx<T>& c, const Traj<T>& t, T lamb, T (*K)[8], T
       Qxx[2][j] = D.lxx[2][j] + (a02 * M1[0][j] + a12 * M1[1][j] + M1[2][j] + a32 * M1[3][j]);
       Qxx[3][j] = D.lxx[3][j] + (a03 * M1[0][j] + a13 * M1[1][j] + M1[3][j]);
       Qux[0][j] = dt * M1[2][j];
-      Qux[1][j] = b31 * M1[3][j];
+      if constexpr (G) {
+        Qux[1][j] = b01 * M1[0][j] + b11 * M1[1][j] + b31 * M1[3][j];
+      } else {
+        Qux[1][j] = b31 * M1[3][j];
+      }
     }
     // Quu = luu + B' V B + lamb I (symmetric)
-    const T q00 = D.luu00 + dt * (dt * V[2][2]) + lamb;
-    const T q01 = dt * (b31 * V[2][3]);
-    const T q11 = D.luu11 + b31 * (b31 * V[3][3]) + lamb;
+    T q00, q01, q11;
+    q00 = D.luu00 + dt * (dt * V[2][2]) + lamb;
+    if constexpr (G) {
+      q01 = dt * (b01 * V[2][0] + b11 * V[2][1] + b31 * V[2][3]);  // dt (V B)[2][1]
+      q11 = D.luu11 +
+            (b01 * (b01 * V[0][0] + b11 * V[0][1] + b31 * V[0][3]) +
+             b11 * (b01 * V[1][0] + b11 * V[1][1] + b31 * V[1][3]) +
+             b31 * (b01 * V[3][0] + b11 * V[3][1] + b31 * V[3][3])) +
+            lamb;
+    } else {
+      q01 = dt * (b31 * V[2][3]);
+      q11 = D.luu11 + b31 * (b31 * V[3][3]) + lamb;
+    }
     const T det = q00 * q11 - q01 * q01;
     if (!(q00 > T(0) && det > T(0))) return false;
     const T i00 = q11 / det, i01 = -q01 / det, i11 = q00 / det;
@@ -391,8 +563,8 @@ __device__ bool backward(const Ctx<T>& c, const Traj<T>& t, T lamb, T (*K)[8], T
 
 // Closed-loop trial rollout u' = u + K (x' - x) + alpha d
 // (src/cilqr_solver.cpp:442-461).
-template <typename T>
-__device__ void forward(const Ctx<T>& c, const Traj<T>& cur, T (*K)[8], T (*d)[2],
+template <typename T, bool G, bool A>
+__device__ void forward(const Ctx<T, G, A>& c, const Traj<T>& cur, T (*K)[8], T (*d)[2],
                         T alpha, Traj<T>& tr) {
   T x = cur.px[0], y = cur.py[0], v = cur.pv[0], h = cur.ph[0];
   tr.px[0] = x;
@@ -415,12 +587,61 @@ __device__ void forward(const Ctx<T>& c, const Traj<T>& cur, T (*K)[8], T (*d)[2
   }
 }
 
-template <typename T>
+// mu <- clip(mu + rho c, 0, max_mu) for one column; NaN stays NaN, as
+// torch.clamp and jnp.clip keep it.
+template <typename T, bool G>
+__device__ __forceinline__ void dual_step(const Ctx<T, G, true>& c, T con, int col, int k) {
+  T& m = c.mu(col, k);
+  T nm = m + c.rho * con;
+  nm = nm < T(0) ? T(0) : nm;
+  m = nm > c.a.max_mu ? c.a.max_mu : nm;
+}
+
+// ALM dual update on line-search exhaustion (src/cilqr_solver.cpp:377-379;
+// JAX kernel :1125-1134): every dual steps with the constraint values of
+// the current trajectory, then rho <- min((1 + gamma) rho, max_rho). The
+// JAX kernel precomputes mu_next from the iteration's trajectory every
+// iteration (:664-672) and keeps it only on exhaustion; an exhausted
+// iteration leaves the trajectory unchanged, so computing it here, from
+// `cur`, gives the same values.
+template <typename T, bool G>
+__device__ void dual_update(Ctx<T, G, true>& c, const Traj<T>& t) {
+  const Weights<T>& w = c.w;
+  for (int k = 0; k <= c.N; ++k) {
+    if (k < c.N) {
+      const T ua = t.ua[k], us = t.us[k];
+      dual_step(c, ua - w.acc_max, 0, k);
+      dual_step(c, w.acc_min - ua, 1, k);
+      dual_step(c, us - w.stl_lim, 2, k);
+      dual_step(c, -w.stl_lim - us, 3, k);
+    }
+    if (k >= 1) {
+      const T v = t.pv[k];
+      dual_step(c, v - w.velo_max, 4, k);
+      dual_step(c, w.velo_min - v, 5, k);
+      T ddx, ddy, h, ds;
+      const T cur_d = lateral(t, k, &ddx, &ddy, &h, &ds);
+      dual_step(c, cur_d - c.up_bound, 6, k);
+      dual_step(c, c.lo_bound - cur_d, 7, k);
+      T fx, fy, rx, ry;
+      front_rear(c, t.px[k], t.py[k], cos_(t.ph[k]), sin_(t.ph[k]), fx, fy, rx, ry);
+      for (int j = 0; j < c.M; ++j) {
+        dual_step(c, ellipse(c, j, k, fx, fy, (T*)nullptr, (T*)nullptr), 8 + 2 * j, k);
+        dual_step(c, ellipse(c, j, k, rx, ry, (T*)nullptr, (T*)nullptr), 9 + 2 * j, k);
+      }
+    }
+  }
+  const T r = (T(1) + c.a.gamma) * c.rho;
+  c.rho = r > c.a.max_rho ? c.a.max_rho : r;
+}
+
+template <typename T, bool G, bool A>
 __global__ void __launch_bounds__(kBlock)
-    cilqr_solve_kernel(const Weights<T> w, const RowLimits lim, const Problem<T> p) {
+    cilqr_solve_kernel(const Weights<T> w, const RowLimits lim, const Problem<T> p,
+                       const AlmArgs<T> alm) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.B) return;  // ragged last block
-  Ctx<T> c;
+  Ctx<T, G, A> c;
   c.w = w;
   c.p = p;
   c.b = b;
@@ -436,10 +657,16 @@ __global__ void __launch_bounds__(kBlock)
   const T eb = T(0.5) * w.width + w.d_safe + T(0.5) * w.width;
   c.ell_a2 = ea * ea;
   c.ell_b2 = eb * eb;
+  const int N = p.N;
+  if constexpr (A) {  // the solve updates its duals in place in mu_out
+    c.a = alm;
+    const size_t rows = (size_t)(8 + 2 * p.M) * N;
+    for (size_t r = 0; r < rows; ++r) alm.mu_out[r * p.B + b] = alm.mu_in[r * p.B + b];
+    c.rho = alm.rho_in[b];
+  }
 
   Traj<T> cur, trial;
   T K[kMaxSteps][8], d[kMaxSteps][2];
-  const int N = p.N;
   T x = c.at(p.x0, 0), y = c.at(p.x0, 1), v = c.at(p.x0, 2), h = c.at(p.x0, 3);
   cur.px[0] = x;
   cur.py[0] = y;
@@ -455,7 +682,8 @@ __global__ void __launch_bounds__(kBlock)
     cur.ph[k + 1] = h;
   }
   project(c, cur);
-  T J = total_cost(c, cur);  // cost of `cur`, kept in step with it
+  // cost of `cur` under the current duals, kept in step with both
+  T J = total_cost(c, cur);
 
   T lamb = w.init_lamb;
   int status = kRunning, iters = 0;
@@ -498,6 +726,15 @@ __global__ void __launch_bounds__(kBlock)
     } else {
       status = small ? kForwardPassSmallStep : kRunning;
     }
+    if constexpr (A) {
+      // duals move only on line-search exhaustion; the JAX kernel
+      // recomputes the iteration's cost with the current duals (:924-925),
+      // so the carried cost is recomputed after they move
+      if (status == kForwardPassFail) {
+        dual_update(c, cur);
+        J = total_cost(c, cur);
+      }
+    }
     if (status == kBackwardPassFail || status == kForwardPassFail) {
       const T amp = lamb * w.lamb_amplify;
       lamb = w.lamb_amplify > amp ? w.lamb_amplify : amp;
@@ -525,18 +762,30 @@ __global__ void __launch_bounds__(kBlock)
   p.stats_out[1 * B + b] = T(status);
   p.stats_out[2 * B + b] = converged ? T(1) : T(0);
   p.stats_out[3 * B + b] = overflow ? T(1) : T(0);
+  // the final cost under the final duals (JAX kernel :1181-1182)
   p.stats_out[4 * B + b] = J;
   p.stats_out[5 * B + b] = lamb;
+  if constexpr (A) alm.rho_out[b] = c.rho;
+}
+
+template <typename T, bool G, bool A>
+int launch_variant(const Weights<T>& w, const RowLimits& lim, const Problem<T>& p,
+                   const AlmArgs<T>& alm, cudaStream_t stream) {
+  cilqr_solve_kernel<T, G, A><<<(p.B + kBlock - 1) / kBlock, kBlock, 0, stream>>>(w, lim, p,
+                                                                               alm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T* rx,
-           const T* ry, const T* ryaw, const T* ox, const T* oy, const T* oyaw, T* u_out,
-           T* x_out, T* stats_out, int B, int N, int M, int W, int max_iter, int n_alphas,
+           const T* ry, const T* ryaw, const T* ox, const T* oy, const T* oyaw, const T* mu_in,
+           const T* rho_in, T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out, int B,
+           int N, int M, int W, int max_iter, int n_alphas, int gravity, int alm,
            cudaStream_t stream) {
   static_assert(sizeof(Weights<T>) == kNumWeights * sizeof(T), "weights layout");
   if (B < 0 || N < 1 || N + 1 > kMaxSteps || M < 0 || W < 1 || max_iter < 0 || n_alphas < 0)
     return cudaErrorInvalidValue;
+  if (alm && !(mu_in && rho_in && mu_out && rho_out)) return cudaErrorInvalidValue;
   Weights<T> w;
   std::memcpy(&w, wts, sizeof(w));
   RowLimits lim = {};
@@ -547,33 +796,44 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
   if (B == 0) return cudaSuccess;
   const Problem<T> p = {x0, uinit, rx, ry, ryaw, ox, oy, oyaw, u_out, x_out, stats_out,
                         B, N, M, W, max_iter, n_alphas};
-  cilqr_solve_kernel<T><<<(B + kBlock - 1) / kBlock, kBlock, 0, stream>>>(w, lim, p);
-  return static_cast<int>(cudaGetLastError());
+  const AlmArgs<T> a = {mu_in, rho_in, mu_out, rho_out, wts[kNumWeights],
+                        wts[kNumWeights + 1], wts[kNumWeights + 2]};
+  if (gravity) {
+    return alm ? launch_variant<T, true, true>(w, lim, p, a, stream)
+               : launch_variant<T, true, false>(w, lim, p, a, stream);
+  }
+  return alm ? launch_variant<T, false, true>(w, lim, p, a, stream)
+             : launch_variant<T, false, false>(w, lim, p, a, stream);
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `wts` and `limits` are host
-// arrays: kNumWeights scalars in _WEIGHT_ORDER and N+1 row limits; every
-// other pointer is device memory. Returns the launch's cudaError_t.
+// arrays: kNumWeights + kNumAlmWeights scalars in _WEIGHT_ORDER and N+1 row
+// limits; every
+// other pointer is device memory (the four dual pointers may be null when
+// alm == 0). `gravity` and `alm` pick the instantiation. Returns the
+// launch's cudaError_t.
 extern "C" int cilqr_solve_f32(const float* wts, const int* limits, const float* x0,
                                const float* uinit, const float* rx, const float* ry,
                                const float* ryaw, const float* ox, const float* oy,
-                               const float* oyaw, float* u_out, float* x_out,
-                               float* stats_out, int B, int N, int M, int W, int max_iter,
-                               int n_alphas, void* stream) {
-  return launch<float>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, u_out, x_out,
-                       stats_out, B, N, M, W, max_iter, n_alphas,
-                       static_cast<cudaStream_t>(stream));
+                               const float* oyaw, const float* mu_in, const float* rho_in,
+                               float* u_out, float* x_out, float* stats_out, float* mu_out,
+                               float* rho_out, int B, int N, int M, int W, int max_iter,
+                               int n_alphas, int gravity, int alm, void* stream) {
+  return launch<float>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in, u_out,
+                       x_out, stats_out, mu_out, rho_out, B, N, M, W, max_iter, n_alphas,
+                       gravity, alm, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cilqr_solve_f64(const double* wts, const int* limits, const double* x0,
                                const double* uinit, const double* rx, const double* ry,
                                const double* ryaw, const double* ox, const double* oy,
-                               const double* oyaw, double* u_out, double* x_out,
-                               double* stats_out, int B, int N, int M, int W, int max_iter,
-                               int n_alphas, void* stream) {
-  return launch<double>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, u_out, x_out,
-                        stats_out, B, N, M, W, max_iter, n_alphas,
-                        static_cast<cudaStream_t>(stream));
+                               const double* oyaw, const double* mu_in, const double* rho_in,
+                               double* u_out, double* x_out, double* stats_out, double* mu_out,
+                               double* rho_out, int B, int N, int M, int W, int max_iter,
+                               int n_alphas, int gravity, int alm, void* stream) {
+  return launch<double>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,
+                        u_out, x_out, stats_out, mu_out, rho_out, B, N, M, W, max_iter, n_alphas,
+                        gravity, alm, static_cast<cudaStream_t>(stream));
 }

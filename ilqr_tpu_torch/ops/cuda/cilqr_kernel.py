@@ -5,7 +5,10 @@ Counterpart of ``ilqr_tpu/ops/pallas/cilqr_kernel.py`` (the TPU kernel
 kernel itself is CUDA C++ in ``ilqr_tpu_torch/csrc/cilqr_kernel.cu``: one
 thread runs one scenario's whole solve (initial rollout and projection, up
 to ``max_iter`` iterations of cost derivatives, Riccati backward pass and
-serial line search, the lambda/status machine).
+serial line search, the lambda/status machine, and in ALM mode the dual
+update). It is instantiated per scalar type (float32, float64), bicycle
+reference point (rear center, gravity center) and penalty family
+(barrier, ALM); ``variant`` names the instantiation a solve takes.
 
 This module holds what the JAX package did outside its kernel, in plain
 torch:
@@ -18,12 +21,20 @@ torch:
 - the x0 packing ``[x, y, v, yaw, rb_hi, rb_lo, ref_velo, 0]``;
 - the per-step search bounds ``row_limits[k] = min(W, round_up_8(w_back +
   slack + k * rows))``. The round-up to 8 was a TPU sublane artifact; it is
-  kept because it decides which window rows are searched.
+  kept because it decides which window rows are searched;
+- in ALM mode, the dual state in and out: the (B, N, C0) carry layout of
+  ``types.CILQRCarry`` (C0 = 8 + 2 * num_obstacles) to and from the
+  kernel's (C, N, B), where C = 8 + 2 * M counts the padded obstacle of an
+  obstacle-free config too (its columns stay inert and are dropped on the
+  way out, as ilqr_tpu/ops/pallas/cilqr_kernel.py:1490-1510, :1664-1675
+  drop them).
 
 Packed layout (every array scenario-fastest, ``[row][B]``, as the Pallas
 host packed its lanes): x0 (8, B), uinit (2, N, B), rx/ry/ryaw (W, B),
-ox/oy/oyaw (M, N+1, B); outputs u (2, N, B), x (4, N+1, B) and stats
-(6, B) = [iters, status, converged, lamb_overflow, final_cost, final_lamb].
+ox/oy/oyaw (M, N+1, B), ALM duals mu (C, N, B) and rho (B,); outputs u
+(2, N, B), x (4, N+1, B), stats (6, B) = [iters, status, converged,
+lamb_overflow, final_cost, final_lamb] and, in ALM mode, the final mu and
+rho in the input layout.
 
 ``cilqr_solve_ref`` is the plain version: the eager solver of
 ``solvers/cilqr.py`` on the same packed inputs, with the window-restricted
@@ -37,6 +48,7 @@ file name keyed by a hash of the source and flags.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -46,9 +58,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
+from ilqr_tpu_torch.models.bicycle import GRAVITY_CENTER, REAR_CENTER
 from ilqr_tpu_torch.solvers.cilqr import alpha_schedule, solve_from_controls
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
 
@@ -58,8 +72,9 @@ W_BACK = 64  # window rows behind the ego's initial projection
 _PROJ_SLACK = 16
 MAX_STEPS = 32  # the kernel's horizon bound: N + 1 <= MAX_STEPS
 
-# Kernel launches by ``cilqr_solve_kernel`` in this process.
-launches = 0
+# Kernel launches in this process, by instantiation (``variant``); only
+# ``cilqr_solve_kernel`` adds to them, once per launch.
+launches: collections.Counter = collections.Counter()
 
 _PKG = Path(__file__).resolve().parents[2]
 _SOURCE = _PKG / "csrc" / "cilqr_kernel.cu"
@@ -74,7 +89,31 @@ _WEIGHT_ORDER = (
     "state_exp_q1", "state_exp_q2", "obstacle_exp_q1", "obstacle_exp_q2",
     "init_lamb", "lamb_decay", "lamb_amplify", "max_lamb",
     "convergence_threshold", "accept_step_threshold", "exp_clip",
+    "alm_gamma", "max_rho", "max_mu",
 )
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+_POINTS = {REAR_CENTER: "rear", GRAVITY_CENTER: "gravity"}
+_PENALTIES = ("barrier", "alm")
+
+
+def instantiation(cfg: CILQRConfig, dtype: torch.dtype) -> tuple:
+    """(``"f32"`` or ``"f64"``, gravity center?, ALM?): the kernel
+    instantiation that solves ``cfg`` in ``dtype``; raises on what the
+    kernel lacks."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if cfg.reference_point not in _POINTS:
+        raise ValueError(f"unknown reference_point {cfg.reference_point!r}")
+    if cfg.solve_type not in _PENALTIES:
+        raise ValueError(f"unknown solve_type {cfg.solve_type!r}")
+    return _DTYPES[dtype], cfg.reference_point == GRAVITY_CENTER, cfg.solve_type == "alm"
+
+
+def variant(cfg: CILQRConfig, dtype: torch.dtype) -> str:
+    """Name of the kernel instantiation that solves ``cfg`` in ``dtype``,
+    e.g. ``cilqr_solve_f32_gravity_alm``; raises on what the kernel lacks."""
+    dt, gravity, alm = instantiation(cfg, dtype)
+    return f"cilqr_solve_{dt}_{('rear', 'gravity')[gravity]}_{_PENALTIES[alm]}"
 
 
 def derive_proj_rows(target_velocity, dt, factor: float = 1.1) -> int:
@@ -105,13 +144,29 @@ class PackedProblem:
     oy: torch.Tensor
     oyaw: torch.Tensor
     row_limits: tuple  # N+1 ints
+    # ALM duals in; None is the reference's cold reset (zero mu, rho_init),
+    # src/cilqr_solver.cpp:88-93
+    mu: Optional[torch.Tensor] = None  # (8 + 2M, N, B)
+    rho: Optional[torch.Tensor] = None  # (B,)
+
+
+class PackedSolution(NamedTuple):
+    """Outputs of the kernel and of its plain version, packed."""
+
+    u: torch.Tensor  # (2, N, B)
+    x: torch.Tensor  # (4, N+1, B)
+    stats: torch.Tensor  # (6, B)
+    mu: Optional[torch.Tensor]  # (8 + 2M, N, B) final duals; None in barrier mode
+    rho: Optional[torch.Tensor]  # (B,)
 
 
 def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
                  u_init=None, w_back: int = W_BACK,
-                 proj_rows_per_step: int = 0) -> PackedProblem:
+                 proj_rows_per_step: int = 0, alm_mu0=None,
+                 alm_rho0=None) -> PackedProblem:
     """Window gather, obstacle pad and packing, in the dtype and on the
-    device of ``x0_b`` (B, 4)."""
+    device of ``x0_b`` (B, 4). ``alm_mu0`` (B, N, C0) and ``alm_rho0`` (B,)
+    seed the duals in ALM mode (ignored otherwise)."""
     dtype, dev = x0_b.dtype, x0_b.device
     B, N, W = x0_b.shape[0], cfg.N, window
     ref = scenario_b.ref_line.to(dtype)  # (B, P, 4)
@@ -132,6 +187,13 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
         uinit = torch.zeros((2, N, B), dtype=dtype, device=dev)
     else:
         uinit = u_init.to(dtype).permute(2, 1, 0).contiguous()
+    mu = rho = None
+    if cfg.solve_type == "alm":
+        if alm_mu0 is not None:
+            mu = torch.zeros((8 + 2 * obs.shape[1], N, B), dtype=dtype, device=dev)
+            mu[:alm_mu0.shape[-1]] = alm_mu0.to(dtype).permute(2, 1, 0)
+        if alm_rho0 is not None:
+            rho = torch.as_tensor(alm_rho0, dtype=dtype, device=dev).expand(B).contiguous()
 
     def lanes(a):
         return a.permute(*range(1, a.dim()), 0).contiguous()
@@ -140,12 +202,15 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
         x0=x0_in.contiguous(), uinit=uinit,
         rx=lanes(win[..., 0]), ry=lanes(win[..., 1]), ryaw=lanes(win[..., 2]),
         ox=lanes(obs[..., 0]), oy=lanes(obs[..., 1]), oyaw=lanes(obs[..., 2]),
-        row_limits=row_limits(N, W, w_back, proj_rows_per_step))
+        row_limits=row_limits(N, W, w_back, proj_rows_per_step), mu=mu, rho=rho)
 
 
-def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem):
+def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
+                    work: Optional[dict] = None) -> PackedSolution:
     """Plain version of the kernel: same packed inputs, same outputs, any
-    dtype on any device (the eager solver with the windowed projection)."""
+    dtype on any device (the eager solver with the windowed projection).
+    ``work`` receives the solver's trial and dual-update counts (see
+    ``solve_from_controls``)."""
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
     win = torch.stack([p.rx, p.ry, p.ryaw, torch.zeros_like(p.rx)], dim=-1)  # (W,B,4)
     obs = torch.stack([p.ox, p.oy, p.oyaw], dim=-1)[:M]  # (M, N+1, B, 3)
@@ -156,12 +221,21 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem):
         road_borders=p.x0[4:6].T,
     )
     limits = torch.tensor(p.row_limits, device=p.x0.device)
-    u, x, st, _, _ = solve_from_controls(cfg, w, p.x0[:4].T, p.uinit.permute(2, 1, 0),
-                                         scenario, row_limits=limits)
+    C0 = cfg.num_constraints
+    mu0 = None if p.mu is None else p.mu[:C0].permute(2, 1, 0)
+    u, x, st, rho, mu = solve_from_controls(cfg, w, p.x0[:4].T, p.uinit.permute(2, 1, 0),
+                                            scenario, p.rho, mu0, row_limits=limits,
+                                            work=work)
     stats = torch.stack([st.iters.to(u.dtype), st.status.to(u.dtype),
                          st.converged.to(u.dtype), st.lamb_overflow.to(u.dtype),
                          st.final_cost, st.final_lamb])
-    return u.permute(2, 1, 0).contiguous(), x.permute(2, 1, 0).contiguous(), stats
+    mu_out = rho_out = None
+    if cfg.solve_type == "alm":
+        mu_out = u.new_zeros((8 + 2 * p.ox.shape[0], N, B))
+        mu_out[:C0] = mu.permute(2, 1, 0)
+        rho_out = rho
+    return PackedSolution(u.permute(2, 1, 0).contiguous(), x.permute(2, 1, 0).contiguous(),
+                          stats, mu_out, rho_out)
 
 
 def _nvcc() -> str:
@@ -195,39 +269,52 @@ def load_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("cilqr_solve_f32", "cilqr_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 13 + [ci] * 6 + [vp]
+        fn.argtypes = [vp] * 17 + [ci] * 8 + [vp]
         fn.restype = ci
     return lib, log_path.read_text() if log_path.exists() else ""
 
 
-def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem):
-    """Launch the CUDA kernel on packed CUDA tensors; returns (u, x, stats)
-    packed like ``cilqr_solve_ref``. Raises on anything the kernel lacks."""
-    global launches
-    if cfg.reference_point != "rear_center" or cfg.solve_type != "barrier":
-        raise NotImplementedError(
-            "the CUDA kernel runs barrier constraints with the rear-center bicycle only; "
-            f"got solve_type={cfg.solve_type!r}, reference_point={cfg.reference_point!r}")
-    dtype, dev = p.x0.dtype, p.x0.device
-    if dev.type != "cuda":
-        raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {dev}")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {dtype}")
-    N, B, W = cfg.N, p.x0.shape[1], p.rx.shape[0]
-    M = p.ox.shape[0]
+def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
+    """Raise unless ``p`` is what the kernel takes: contiguous arrays of one
+    floating dtype on one device (those of ``p.x0``) in the packed shapes,
+    N + 1 row limits in [1, W], N + 1 <= MAX_STEPS, and duals (when given)
+    of C = 8 + 2M columns."""
+    dtype, device = p.x0.dtype, p.x0.device
+    N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
     if N + 1 > MAX_STEPS:
         raise ValueError(f"N={N} exceeds the kernel's horizon bound {MAX_STEPS - 1}")
     shapes = {"x0": (8, B), "uinit": (2, N, B), "rx": (W, B), "ry": (W, B),
               "ryaw": (W, B), "ox": (M, N + 1, B), "oy": (M, N + 1, B),
-              "oyaw": (M, N + 1, B)}
+              "oyaw": (M, N + 1, B), "mu": (8 + 2 * M, N, B), "rho": (B,)}
     for name, shape in shapes.items():
         t = getattr(p, name)
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {shape} {dtype} on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if t is None and name in ("mu", "rho"):
+            continue
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous {shape} {dtype} on {device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     if len(p.row_limits) != N + 1 or not all(0 < r <= W for r in p.row_limits):
         raise ValueError(f"row_limits must be N+1 values in [1, {W}]")
+
+
+def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem) -> PackedSolution:
+    """Launch the CUDA kernel on packed CUDA tensors; returns the solution
+    packed like ``cilqr_solve_ref``'s. Raises on anything the kernel lacks."""
+    dtype, dev = p.x0.dtype, p.x0.device
+    name = variant(cfg, dtype)
+    _, gravity, alm = instantiation(cfg, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {dev}")
+    check_packed(cfg, p)
+    N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
+    mu_in = rho_in = mu = rho = None
+    if alm:
+        mu_in = (torch.zeros((8 + 2 * M, N, B), dtype=dtype, device=dev) if p.mu is None
+                 else p.mu)
+        rho_in = w.alm_rho_init.to(dtype).expand(B).contiguous() if p.rho is None else p.rho
+        mu = torch.empty_like(mu_in)
+        rho = torch.empty_like(rho_in)
     lib, _ = load_library()
     u = torch.empty((2, N, B), dtype=dtype, device=dev)
     x = torch.empty((4, N + 1, B), dtype=dtype, device=dev)
@@ -237,40 +324,59 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem):
     wts = (scalar * len(wvals))(*wvals)
     lims = (ctypes.c_int * (N + 1))(*p.row_limits)
     fn = lib.cilqr_solve_f32 if dtype == torch.float32 else lib.cilqr_solve_f64
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(wts), ctypes.addressof(lims),
-                 *(t.data_ptr() for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw,
-                                          p.ox, p.oy, p.oyaw, u, x, stats)),
-                 B, N, M, W, cfg.max_iter, len(alpha_schedule(cfg.min_alpha)), stream)
+                 *(ptr(t) for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw, p.ox, p.oy, p.oyaw,
+                                    mu_in, rho_in, u, x, stats, mu, rho)),
+                 B, N, M, W, cfg.max_iter, len(alpha_schedule(cfg.min_alpha)),
+                 int(gravity), int(alm), stream)
     if err != 0:
-        raise RuntimeError(f"cilqr_solve kernel launch failed: cudaError_t {err}")
-    launches += 1
-    return u, x, stats
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    launches[name] += 1
+    return PackedSolution(u, x, stats, mu, rho)
 
 
 def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenario,
                      window: int = 512, u_init=None, proj_rows_per_step: int = 0,
-                     w_back: int = W_BACK):
+                     w_back: int = W_BACK, alm_mu0=None, alm_rho0=None,
+                     return_alm: bool = False):
     """Batched CILQR solve through the fused kernel.
 
     x0_b (B, 4); scenario_b: batched ``Scenario``; u_init (B, N, 2) warm-start
     controls or None (zeros). Returns (u (B, N, 2), x (B, N+1, 4),
-    SolveStats). CUDA tensors launch the kernel; CPU tensors run the plain
-    version ``cilqr_solve_ref``.
+    SolveStats), plus the final duals (alm_mu (B, N, C0), alm_rho (B,)) when
+    ``return_alm`` (ALM mode only). CUDA tensors launch the kernel; CPU
+    tensors run the plain version ``cilqr_solve_ref``.
+
+    ALM warm starts: ``alm_mu0`` (B, N, C0) / ``alm_rho0`` (B,) seed the dual
+    state; None is the reference's cold reset, zero mu and rho_init
+    (src/cilqr_solver.cpp:88-93). When to carry the previous solve's duals
+    is the caller's policy, as in ``ilqr_tpu``'s ``cilqr_solve_pallas``.
     """
-    p = pack_problem(cfg, x0_b, scenario_b, window, u_init, w_back, proj_rows_per_step)
+    if return_alm and cfg.solve_type != "alm":
+        raise ValueError("return_alm needs solve_type='alm'")
+    p = pack_problem(cfg, x0_b, scenario_b, window, u_init, w_back, proj_rows_per_step,
+                     alm_mu0, alm_rho0)
     if x0_b.device.type == "cuda":
-        u, x, stats = cilqr_solve_kernel(cfg, w, p)
+        out = cilqr_solve_kernel(cfg, w, p)
     elif x0_b.device.type == "cpu":
-        u, x, stats = cilqr_solve_ref(cfg, w, p)
+        out = cilqr_solve_ref(cfg, w, p)
     else:
         raise ValueError(f"unsupported device {x0_b.device}")
-    return u.permute(2, 1, 0), x.permute(2, 1, 0), SolveStats(
+    stats = out.stats
+    result = (out.u.permute(2, 1, 0), out.x.permute(2, 1, 0), SolveStats(
         iters=stats[0].to(torch.int32),
         status=stats[1].to(torch.int32),
         converged=stats[2] > 0.5,
         lamb_overflow=stats[3] > 0.5,
         final_cost=stats[4],
         final_lamb=stats[5],
-    )
+    ))
+    if not return_alm:
+        return result
+    return result + ((out.mu[:cfg.num_constraints].permute(2, 1, 0), out.rho),)

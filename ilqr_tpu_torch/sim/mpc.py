@@ -65,19 +65,29 @@ def run_mpc(cfg: CILQRConfig, w: CILQRWeights, setup, ticks: Optional[int] = Non
 
 def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo_b,
                    obs_full_b, road_borders_b, ticks: int, window: int = 512,
-                   proj_rows_per_step: int = 0, w_back: int = W_BACK):
+                   proj_rows_per_step: int = 0, w_back: int = W_BACK,
+                   return_alm: bool = False):
     """Batched receding-horizon episodes on the fused solve.
 
     x0_b (B, 4); ref_line_b (B, P, 4); ref_velo_b (B,); obs_full_b
     (B, M, T, 3) with T >= ticks + N + 1; road_borders_b (B, 2). The
     reference's shifted-previous-u warm start (src/cilqr_solver.cpp:163-180)
-    is applied when ``cfg.use_last_solution``; the first tick is cold.
+    is applied when ``cfg.use_last_solution``; the first tick is cold. In
+    ALM mode the duals (mu, rho) persist across ticks under
+    ``use_last_solution``, like the reference's members (:88-102) and
+    ``ilqr_tpu.sim.mpc.run_mpc_kernel``; otherwise every tick starts from
+    the cold reset.
 
     Returns (ego (ticks+1, B, 4), u_hist (ticks, B, N, 2), SolveStats with a
-    leading ticks axis).
+    leading ticks axis), plus the last tick's duals (alm_mu (B, N, C0),
+    alm_rho (B,)) when ``return_alm`` (ALM mode only).
     """
+    if return_alm and cfg.solve_type != "alm":
+        raise ValueError("return_alm needs solve_type='alm'")
+    alm = cfg.solve_type == "alm"
     ego = x0_b
     u_prev = None
+    duals = (None, None)
     egos, us, stats_hist = [ego], [], []
     for t in range(ticks):
         scenario = Scenario(ref_line=ref_line_b, ref_velo=ref_velo_b,
@@ -86,11 +96,18 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo
         u_init = None
         if cfg.use_last_solution and u_prev is not None:
             u_init = torch.cat([u_prev[:, 1:], u_prev[:, -1:]], dim=1)
-        u, x, st = cilqr_solve_cuda(cfg, w, ego, scenario, window=window, u_init=u_init,
-                                    proj_rows_per_step=proj_rows_per_step, w_back=w_back)
+        kw = dict(window=window, u_init=u_init, proj_rows_per_step=proj_rows_per_step,
+                  w_back=w_back)
+        if alm:
+            mu0, rho0 = duals if cfg.use_last_solution else (None, None)
+            u, x, st, duals = cilqr_solve_cuda(cfg, w, ego, scenario, alm_mu0=mu0,
+                                               alm_rho0=rho0, return_alm=True, **kw)
+        else:
+            u, x, st = cilqr_solve_cuda(cfg, w, ego, scenario, **kw)
         ego = x[:, 1]
         u_prev = u
         egos.append(ego)
         us.append(u)
         stats_hist.append(st)
-    return torch.stack(egos), torch.stack(us), _stack_stats(stats_hist)
+    out = (torch.stack(egos), torch.stack(us), _stack_stats(stats_hist))
+    return out + (duals,) if return_alm else out

@@ -41,6 +41,7 @@ from ilqr_tpu_torch.types import (
     Scenario,
     SolveStats,
     SolveStatus,
+    entry_device,
     numpy_dtype,
 )
 from ilqr_tpu_torch.utils.refline import ReferenceLine, RoutingLine
@@ -76,7 +77,7 @@ class _LineSearchResult(NamedTuple):
 
 
 def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
-                 alm_mu, searching, row_limits) -> _LineSearchResult:
+                 alm_mu, searching, row_limits, work=None) -> _LineSearchResult:
     """Backtracking line search (reference src/cilqr_solver.cpp:354-372) for
     the rows in ``searching``; each row stops at its first hit."""
     done = ~searching
@@ -87,6 +88,8 @@ def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
     for t, alpha in enumerate(alpha_schedule(cfg.min_alpha)):
         if bool(done.all()):
             break
+        if work is not None:
+            work["trials"] += int((~done).sum())
         nu, nx = forward_pass(u, x, d, K, alpha, w.dt, w.wheelbase, cfg.reference_point)
         nJ = total_cost(cfg, w, nu, nx, scenario, alm_rho, alm_mu, row_limits)
         decay = ori_cost - nJ
@@ -111,13 +114,19 @@ def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
 
 
 def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Scenario,
-                        alm_rho0=None, alm_mu0=None, row_limits=None):
+                        alm_rho0=None, alm_mu0=None, row_limits=None, work=None):
     """The solve loop from initial controls u0 (B, N, 2).
 
     Returns (u (B,N,2), x (B,N+1,4), SolveStats, alm_rho (B,), alm_mu (B,N,C)).
     ``alm_rho0``/``alm_mu0`` default to the reference's cold reset
-    (src/cilqr_solver.cpp:88-93).
+    (src/cilqr_solver.cpp:88-93). A ``work`` dict gets the counts of what
+    each row needed, summed over rows: ``trials`` (line-search trials
+    evaluated) and ``dual_updates`` (ALM dual steps); the iterations are
+    in the returned stats.
     """
+    if work is not None:
+        work.setdefault("trials", 0)
+        work.setdefault("dual_updates", 0)
     if cfg.riccati_impl != "scan":
         raise NotImplementedError(f"riccati_impl={cfg.riccati_impl!r} is not ported")
     Bn = x0.shape[0]
@@ -147,7 +156,7 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
         A, Bm = kinematic_jacobians(x[:, :-1], u, w.dt, w.wheelbase, cfg.reference_point)
         bw = backward_pass(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb)
         ls = _line_search(cfg, w, u, x, bw.d, bw.K, ori_cost, bw.dV1, bw.dV2, scenario,
-                          rho, mu, active & ~bw.fail, row_limits)
+                          rho, mu, active & ~bw.fail, row_limits, work)
 
         bp_failed = active & bw.fail
         accepted = active & ~bw.fail & ls.accepted
@@ -166,6 +175,8 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
         status = torch.where(active, new_status, status)
 
         if alm:
+            if work is not None:
+                work["dual_updates"] += int(exhausted.sum())
             mu = torch.where(exhausted[:, None, None], der.alm_mu_next, mu)
             rho = torch.where(exhausted,
                               torch.minimum((1.0 + w.alm_gamma) * rho, w.max_rho), rho)
@@ -231,13 +242,14 @@ class CILQRSolver:
     """Reference-style OO wrapper (include/cilqr_solver.hpp:31-41): construct
     from a config, call ``solve(x0, ref_line, ref_velo, obs_preds,
     road_borders)`` repeatedly for one scenario; warm start and ALM duals
-    are carried across calls."""
+    are carried across calls. Runs on the GPU unless ``device="cpu"``; with
+    no GPU the default raises."""
 
-    def __init__(self, config: GlobalConfig, dtype=torch.float64, device="cpu",
+    def __init__(self, config: GlobalConfig, dtype=torch.float64, device="cuda",
                  num_obstacles: Optional[int] = None, **cfg_overrides):
         self.gc = config
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.cfg = CILQRConfig.from_global_config(config, num_obstacles, **cfg_overrides)
         self.weights = CILQRWeights.from_global_config(config, dtype, self.device)
         self.reset()

@@ -27,6 +27,16 @@ def numpy_dtype(dtype: torch.dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def entry_device(device) -> torch.device:
+    """The device an entry point runs on: the given one, with a clear error
+    instead of a silent CPU run when it names CUDA and there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device is available; "
+                           "pass device='cpu' (--device cpu) to run on the CPU")
+    return dev
+
+
 class SolveStatus:
     """Reference enum LQRSolveStatus (include/cilqr_solver.hpp:23-29)."""
 

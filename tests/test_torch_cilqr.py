@@ -69,7 +69,7 @@ def test_solver_ticks_match_jax(name, ticks):
     carry lives in the solver between calls)."""
     jgc, jst, gc, st = load_both(name)
     jsolver = JaxSolver(jgc, dtype=jnp.float64)
-    solver = CILQRSolver(gc, dtype=torch.float64)
+    solver = CILQRSolver(gc, dtype=torch.float64, device="cpu")
     assert solver.cfg.use_last_solution == jsolver.cfg.use_last_solution
     obs = st.obs_preds_array()
     ego_j = ego = st.ego_x0.copy()

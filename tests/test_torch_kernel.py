@@ -52,12 +52,12 @@ def test_plain_path_matches_jax_solver(main_path_problem):
                                                                          dtype=jnp.float64))
     ju, jx, jstats, _ = jax.jit(jax.vmap(jax_solve, in_axes=(None, None, 0, 0, None)),
                                 static_argnums=0)(jcfg, jw, jnp.asarray(x0), jsc, None)
-    launches = ck.launches
+    launches = sum(ck.launches.values())
     u, x, stats = ck.cilqr_solve_cuda(port_config(jcfg), port_weights(jw), t64(x0),
                                       st.device_scenario(tick=0, dtype=torch.float64,
                                                          batch=B),
                                       window=384, proj_rows_per_step=rows, w_back=24)
-    assert ck.launches == launches  # CPU tensors never launch the kernel
+    assert sum(ck.launches.values()) == launches  # CPU tensors never launch the kernel
     np.testing.assert_array_equal(stats.iters.numpy(), np.asarray(jstats.iters))
     np.testing.assert_array_equal(stats.status.numpy(), np.asarray(jstats.status))
     np.testing.assert_array_equal(stats.converged.numpy(), np.asarray(jstats.converged))
@@ -105,18 +105,37 @@ def test_pack_problem_window_and_layout():
 
 
 def test_kernel_launch_refuses_cpu_tensors_and_missing_variants():
-    """No fallback: the kernel entry point raises instead of computing."""
+    """No fallback: the kernel entry point raises instead of computing, on
+    CPU tensors, on what no instantiation covers (an unknown reference
+    point or penalty family, a horizon past the kernel's bound) and on
+    inputs of the wrong shape."""
     _, _, gc, st = load_both("scenario_two_borrow")
     cfg = CILQRConfig.from_global_config(gc)
     w = CILQRWeights.from_global_config(gc, dtype=torch.float32)
     x0 = torch.as_tensor(st.ego_x0[None], dtype=torch.float32)
     p = ck.pack_problem(cfg, x0, st.device_scenario(dtype=torch.float32), window=64)
-    launches = ck.launches
-    with pytest.raises(NotImplementedError):  # gravity center
-        ck.cilqr_solve_kernel(cfg, w, p)
-    with pytest.raises(NotImplementedError):
-        ck.cilqr_solve_kernel(dataclasses.replace(cfg, reference_point="rear_center",
-                                                  solve_type="alm"), w, p)
-    with pytest.raises(ValueError):
-        ck.cilqr_solve_kernel(dataclasses.replace(cfg, reference_point="rear_center"), w, p)
-    assert ck.launches == launches
+    launches = sum(ck.launches.values())
+    assert ck.variant(cfg, torch.float32) == "cilqr_solve_f32_gravity_barrier"
+    assert ck.variant(dataclasses.replace(cfg, reference_point="rear_center", solve_type="alm"),
+                      torch.float64) == "cilqr_solve_f64_rear_alm"
+    for bad in ({"reference_point": "front_axle"}, {"solve_type": "penalty"}):
+        with pytest.raises(ValueError):
+            ck.cilqr_solve_kernel(dataclasses.replace(cfg, **bad), w, p)
+    with pytest.raises(TypeError):
+        ck.cilqr_solve_kernel(cfg, w, dataclasses.replace(p, x0=p.x0.half()))
+    with pytest.raises(ValueError, match="CUDA"):  # every variant, on CPU tensors
+        ck.cilqr_solve_kernel(dataclasses.replace(cfg, solve_type="alm"), w, p)
+    # the launch's input checks, held against the tensors' own device
+    long = dataclasses.replace(cfg, N=ck.MAX_STEPS)
+    with pytest.raises(ValueError, match="horizon"):
+        ck.check_packed(long, p)
+    with pytest.raises(ValueError, match="uinit"):
+        ck.check_packed(cfg, dataclasses.replace(p, uinit=p.uinit[:, :-1]))
+    with pytest.raises(ValueError, match="rx"):
+        ck.check_packed(cfg, dataclasses.replace(p, rx=p.rx.T.contiguous()))
+    with pytest.raises(ValueError, match="row_limits"):
+        ck.check_packed(cfg, dataclasses.replace(p, row_limits=p.row_limits[:-1]))
+    alm = dataclasses.replace(cfg, solve_type="alm")
+    with pytest.raises(ValueError, match="mu"):
+        ck.check_packed(alm, dataclasses.replace(p, mu=torch.zeros(8, cfg.N, 1)))
+    assert sum(ck.launches.values()) == launches

@@ -5,18 +5,11 @@ Imports only the port, so it runs on a GPU machine without the JAX package's
 dependencies:  python -m pytest -m gpu tests/test_torch_kernel_gpu.py -q
 """
 
-import os
-
 import pytest
 import torch
 
-from ilqr_tpu_torch.config import GlobalConfig
+from ilqr_tpu_torch.apps.validate_kernel import CASES, packed_cold
 from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
-from ilqr_tpu_torch.sim.scenario import build_scenario_setup, perturbed_initial_states
-from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
-
-CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
-                      "scenario_two_straight.yaml")
 
 
 @pytest.fixture()
@@ -26,26 +19,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _packed(case, dtype, dev, B):
+    name, over, wover = CASES[case]
+    return packed_cold(name, B, dtype, dev, weights=wover, **over)
+
+
 @pytest.mark.gpu
-def test_kernel_matches_plain_on_gpu(cuda_device):
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_matches_plain_on_gpu(cuda_device, case):
     """Double kernel vs double plain version on the main path's window:
     iterations and statuses equal on >= 99% of rows (a threshold decision
-    can flip on 1e-16 sum-order differences), u and x within 1e-6 on those
-    rows; one launch counted."""
-    gc = GlobalConfig.from_file(CONFIG)
-    st = build_scenario_setup(gc)
-    cfg = CILQRConfig.from_global_config(gc)
-    w = CILQRWeights.from_global_config(gc, dtype=torch.float64, device=cuda_device)
+    can flip on 1e-16 sum-order differences), u, x and the duals within
+    1e-6 on those rows; one launch counted, on this instantiation."""
     B = 200  # two blocks of 128 threads, the second ragged
-    x0 = torch.as_tensor(perturbed_initial_states(st.ego_x0, B, seed=0), device=cuda_device)
-    sc = st.device_scenario(tick=0, dtype=torch.float64, device=cuda_device, batch=B)
-    p = ck.pack_problem(cfg, x0, sc, 384, None, 24, ck.derive_proj_rows(8, 0.1))
-    launches = ck.launches
-    uk, xk, sk = ck.cilqr_solve_kernel(cfg, w, p)
+    cfg, w, p = _packed(case, torch.float64, cuda_device, B)
+    name = ck.variant(cfg, torch.float64)
+    launches = ck.launches[name]
+    k = ck.cilqr_solve_kernel(cfg, w, p)
     torch.cuda.synchronize()
-    assert ck.launches == launches + 1
-    ur, xr, sr = ck.cilqr_solve_ref(cfg, w, p)
-    same = (sk[0] == sr[0]) & (sk[1] == sr[1])
+    assert ck.launches[name] == launches + 1
+    r = ck.cilqr_solve_ref(cfg, w, p)
+    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
     assert int(same.sum()) >= 0.99 * B
-    assert float((uk - ur).abs()[:, :, same].max()) <= 1e-6
-    assert float((xk - xr).abs()[:, :, same].max()) <= 1e-6
+    assert float((k.u - r.u).abs()[:, :, same].max()) <= 1e-6
+    assert float((k.x - r.x).abs()[:, :, same].max()) <= 1e-6
+    if cfg.solve_type == "alm":
+        assert float((k.mu - r.mu).abs()[:, :, same].max()) <= 1e-6
+        assert float((k.rho - r.rho).abs()[same].max()) <= 1e-6
+        if case == "gravity_alm_duals_move":
+            assert float(r.mu.max()) > 0 and float(r.rho.max()) > 20.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["gravity_barrier", "rear_alm", "gravity_alm"])
+def test_float32_instantiation_runs(cuda_device, case):
+    """The float32 builds launch, finish with finite outputs and agree with
+    the plain float32 version on most rows (float32 chaos flips some)."""
+    B = 256
+    cfg, w, p = _packed(case, torch.float32, cuda_device, B)
+    k = ck.cilqr_solve_kernel(cfg, w, p)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(k.u).all() and torch.isfinite(k.x).all())
+    r = ck.cilqr_solve_ref(cfg, w, p)
+    assert float(((k.stats[1] == r.stats[1]).float()).mean()) >= 0.9

@@ -9,16 +9,26 @@ import dataclasses
 import functools
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from ilqr_tpu.config import GlobalConfig as JaxGlobalConfig
 from ilqr_tpu.sim.scenario import build_scenario_setup as jax_build_scenario_setup
+from ilqr_tpu.sim.scenario import perturbed_initial_states
+from ilqr_tpu.solvers.cilqr import solve as jax_solve
+from ilqr_tpu.types import CILQRConfig as JaxConfig
+from ilqr_tpu.types import CILQRWeights as JaxWeights
 from ilqr_tpu_torch.config import GlobalConfig
+from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 from ilqr_tpu_torch.sim.scenario import build_scenario_setup
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
 
 from tests.conftest import CONFIG_DIR
+
+TOL = 1e-8  # float64 parity bar: sum-order drift only
+WINDOW, W_BACK = 256, 24  # the small problems' reference-line window
 
 SCENARIOS = [
     "scenario_two_straight",
@@ -49,3 +59,51 @@ def port_weights(w_jax, dtype=torch.float64) -> CILQRWeights:
 def t64(a):
     """A float64 CPU tensor of a numpy or JAX array."""
     return torch.as_tensor(np.array(a, dtype=np.float64))
+
+
+def small_problem(name, B, seed, max_iter=6, weights=None, **cfg_over):
+    """A cold batch of ``B`` perturbed starts of a shipped scenario at N = 6
+    (the sizes of ``tests/test_pallas_kernel.py``): the JAX config, weights,
+    starts and batched scenario, and the port's config, weights and batched
+    scenario. ``weights`` and ``cfg_over`` override weights and config
+    fields in both packages."""
+    jgc, jst, _, st = load_both(name)
+    jcfg = dataclasses.replace(JaxConfig.from_global_config(jgc, max_iter=max_iter), N=6,
+                               use_last_solution=False, **cfg_over)
+    jw = JaxWeights.from_global_config(jgc, dtype=jnp.float64)
+    if weights:
+        jw = dataclasses.replace(jw, **{k: jnp.asarray(v, jnp.float64)
+                                        for k, v in weights.items()})
+    x0 = perturbed_initial_states(jst.ego_x0, B, seed=seed)
+    jsc = jax.tree.map(lambda a: jnp.stack([a] * B),
+                       jst.device_scenario(tick=0, horizon=jcfg.N, dtype=jnp.float64))
+    sc = st.device_scenario(tick=0, horizon=jcfg.N, dtype=torch.float64, batch=B)
+    return jcfg, jw, x0, jsc, port_config(jcfg), port_weights(jw), sc
+
+
+def jax_batch(jcfg, jw, x0, jsc, carry=None):
+    """The JAX XLA solve, vmapped over the rows."""
+    axes = (None, None, 0, 0, None if carry is None else 0)
+    return jax.jit(jax.vmap(jax_solve, in_axes=axes), static_argnums=0)(
+        jcfg, jw, jnp.asarray(x0), jsc, carry)
+
+
+def port_solve(cfg, w, x0, sc, **kw):
+    """``cilqr_solve_cuda`` on CPU tensors (its plain version), window 256,
+    w_back 24; checks that no kernel launched."""
+    before = sum(ck.launches.values())
+    out = ck.cilqr_solve_cuda(cfg, w, t64(x0), sc, window=WINDOW, w_back=W_BACK, **kw)
+    assert sum(ck.launches.values()) == before  # CPU tensors never launch the kernel
+    return out
+
+
+def check_solution(u, x, stats, ju, jx, jstats):
+    """Exact iterations, statuses and convergence flags; u, x and the final
+    cost within TOL."""
+    np.testing.assert_array_equal(stats.iters.numpy(), np.asarray(jstats.iters))
+    np.testing.assert_array_equal(stats.status.numpy(), np.asarray(jstats.status))
+    np.testing.assert_array_equal(stats.converged.numpy(), np.asarray(jstats.converged))
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), rtol=0, atol=TOL)
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=TOL)
+    np.testing.assert_allclose(stats.final_cost.numpy(), np.asarray(jstats.final_cost),
+                               rtol=TOL)
