@@ -2,21 +2,29 @@
 """Smoke test of the PyTorch/CUDA port (``ilqr_tpu_torch``) on one GPU.
 
 Builds the fused CILQR kernel (every instantiation: float32/float64 x rear/
-gravity center x barrier/ALM) from this checkout's sources, holds it
-against its plain PyTorch version, and drives the port's paths through it
-with ``run_mpc_kernel``, float32, batch 8192 perturbed starts (seed 0):
+gravity center x barrier/ALM, each with its resume entry) and the
+``tools/debug`` repro kernels from this checkout's sources, one nvcc per
+source, started together; holds every kernel against its plain PyTorch
+version, and drives the port's paths through it with ``run_mpc_kernel``,
+float32, batch 8192 perturbed starts (seed 0), each path once without and
+once with straggler compaction (``SCHEDULES``; the two must be bitwise
+equal):
 
 - the main path: 120-tick episodes of ``configs/scenario_two_straight.yaml``
-  (rear center, barrier) with the shifted-u warm start;
-- path (a): 150-tick episodes of ``configs/scenario_three_bend.yaml``
-  (gravity center, barrier, cold ticks as the yaml sets it);
+  (rear center, barrier) with the shifted-u warm start; with the JAX
+  bench's schedule (8, 16, 32) on the first tick and (6, 12, 24) on warm
+  ticks (bench.py:86, :95);
+- path (a): episodes of ``configs/scenario_three_bend.yaml`` (gravity
+  center, barrier, cold ticks as the yaml sets it), schedule (8, 16, 32) on
+  every tick. Cut from 150 to 12 ticks;
 - path (b): 150-tick ALM episodes of ``configs/scenario_two_borrow.yaml``
   (gravity center, rho_init 20) with the warm start and the duals carried
   across ticks (they stay at the cold reset there: no line search
-  exhausts);
+  exhausts); no schedule;
 - path (b2): ALM episodes of ``configs/scenario_three_bend.yaml`` with
   gamma 0.3 and max_rho 40, warm, duals carried: line searches exhaust, so
-  mu moves and rho grows, in float32 at full batch. Cut to 50 ticks.
+  mu moves and rho grows, in float32 at full batch, and the duals cross
+  the resume; the bench's schedule. Cut from 150 to 20 ticks.
 
     python3 chip_smoke.py          # from the repository root, one CUDA GPU
 
@@ -24,7 +32,7 @@ Phases, one printed line each; any failure raises, so the script exits
 non-zero and prints no final line:
 
 0. environment: torch / CUDA versions, the card's name and power limit,
-   nvcc and triton presence, the kernel build time and each
+   nvcc and triton presence, the kernels' build time and each
    instantiation's registers, stack and spills from ptxas;
 1. float64 semantics: each double instantiation against
    ``cilqr_solve_ref`` in double on the card, cold solve, batch 256 --
@@ -33,7 +41,10 @@ non-zero and prints no final line:
    (two_borrow), rear/ALM (two_straight), gravity/ALM (two_borrow), and
    gravity/ALM with moving duals (three_bend, its rho_init 20 and max_mu
    100 with gamma 0.3 and max_rho 40: line searches exhaust, mu moves and
-   rho grows on most rows);
+   rho grows on most rows). Compaction at (8, 16, 32) and at (2, 5)
+   bitwise equal to one launch, and the resume entry against the resumed
+   plain version (the kernel's solve capped at 2 iterations, resumed to
+   5) with the same gate;
 2. float32 against the float64 truth (``tools/f64_anchors.json``), batch
    1024, all four scenarios through ``ilqr_tpu_torch.apps.validate_kernel``
    (the gate of ``tools/validate_kernel_tpu.py``): convergence fraction and
@@ -45,25 +56,45 @@ non-zero and prints no final line:
    (batch 8192, first tick, cold), in ALM mode with the final duals too
    (rho equal on >= 99% of the rows of equal iterations and statuses, and
    the p90 over those rows of each row's largest mu difference < 1e-2):
-   the float32 kernels' times;
+   the float32 kernels' times; on the paths with a schedule, the resume
+   entry's time at the shape of the second phase (the kernel's solve
+   capped at 8 iterations, its stragglers resumed to 16) against the
+   resumed plain version;
+2c. compaction (8, 16, 32) bitwise equal to one launch for every float32
+   instantiation (the phase 1 cases), batch 8192, first tick cold;
 3. the main path: one kernel launch per tick, finite outputs, and the
    float64-confirmed car-following equilibrium (mean final ego x 52.70 m,
-   within 0.05 m);
+   within 0.05 m); with the schedule, one first-phase launch per tick, at
+   most 3 resume launches per tick, and every tick's ego, u and stats
+   bitwise equal to the run without;
 4. paths (a), (b) and (b2): one launch per tick, finite outputs and
-   duals, and on (b2) duals that moved;
-5. float64 episodes, batch 256, 5 warm ticks, ``run_mpc_kernel`` against
-   the same episodes written out over the plain version on the card:
-   per-tick iterations and statuses equal on >= 99% of rows, trajectories
-   and final duals within 1e-6 on them -- each double instantiation, the
-   ALM ones with the duals carried across ticks (also the phase 1
-   three_bend case, whose duals move).
+   duals, and on (b2) duals that moved; (a) and (b2) with the schedule as
+   the main path, duals included;
+5. float64 episodes, batch 128, 3 ticks (cut from 256 and 5), the first
+   cold, ``run_mpc_kernel`` with the schedule (2, 5) on every tick (so
+   every double resume entry runs) against the same episodes written out
+   over the plain version without compaction on the card: per-tick
+   iterations and statuses equal on >= 99% of rows, trajectories and
+   final duals within 1e-6 on them -- each
+   double instantiation, the ALM ones with the duals carried across ticks
+   (also the phase 1 three_bend case, whose duals move);
+6. compaction off / on / on / off on the main path and path (a): per-tick
+   kernel ms (CUDA events around each launch, a tick's launches summed),
+   episode wall time, the straggler rows each later phase resumed (mean
+   and max per tick), and a fifth run with compaction on under
+   ``torch.profiler``: the device's busy time and idle share;
+7. the ``tools/debug`` repro kernels: each flow once with the counts at 0,
+   then each kernel bitwise equal to its plain version and to the repro's
+   closed form, with its time, the plain version's and the library call's.
 
 The last three lines are the card's name and power limit, a JSON object
-describing each kernel instantiation that ran, and
+describing each kernel that ran on the paths (the solve's instantiations,
+their resume entries, the repro kernels), and
 ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import concurrent.futures
 import importlib.util
 import json
 import re
@@ -76,6 +107,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 KERNEL_SOURCE = "ilqr_tpu_torch/csrc/cilqr_kernel.cu"
 REPLACES = "ilqr_tpu/ops/pallas/cilqr_kernel.py:166"
+RESUME_REPLACES = "ilqr_tpu/ops/pallas/cilqr_kernel.py:1156"  # the resume entry; host :1596
+REPRO_SOURCE = "ilqr_tpu_torch/csrc/debug_repros.cu"
 BATCH = 8192
 TICKS = 120
 EGO_X_ANCHOR = 52.70  # float64 car-following equilibrium, metres
@@ -92,15 +125,25 @@ DUALS_MOVE = dict(alm_gamma=0.3, max_rho=40.0)
 # float32 paths: name -> (scenario, config and weight overrides, ticks)
 PATHS = {
     "main": ("scenario_two_straight", {"use_last_solution": True}, TICKS),
-    "a_three_bend": ("scenario_three_bend", {}, 150),
+    # 150 ticks cut to 12 (0.4-0.6 s a tick, run five times; batch and N as shipped)
+    "a_three_bend": ("scenario_three_bend", {}, 12),
     "b_alm_two_borrow": ("scenario_two_borrow", {"solve_type": "alm",
                                                  "use_last_solution": True}, 150),
-    # 150 ticks cut to 50 (about 0.7 s a tick; batch and N as shipped)
+    # 150 ticks cut to 20 (0.4-0.6 s a tick, run twice; batch and N as shipped)
     "b2_alm_duals_move": ("scenario_three_bend", {"solve_type": "alm", "use_last_solution": True,
-                                                  "weights": DUALS_MOVE}, 50),
+                                                  "weights": DUALS_MOVE}, 20),
 }
-FULL_TICKS = {"b2_alm_duals_move": 150}  # a path's episode length before its cut
+FULL_TICKS = {"a_three_bend": 150, "b2_alm_duals_move": 150}  # episode lengths before the cuts
 DUALS_MOVE_PATHS = ("b2_alm_duals_move",)  # paths that fail unless their duals move
+# straggler compaction: the JAX bench's schedule (bench.py:86, :95), cold
+# first tick and warm ticks; path (a) is cold on every tick
+COLD_CAPS, WARM_CAPS = (8, 16, 32), (6, 12, 24)
+BENCH_SCHEDULE = dict(straggler_cap=COLD_CAPS, straggler_cap_warm=WARM_CAPS)
+SCHEDULES = {"main": BENCH_SCHEDULE, "a_three_bend": dict(straggler_cap=COLD_CAPS),
+             "b2_alm_duals_move": BENCH_SCHEDULE}
+TIMED_PATHS = ("main", "a_three_bend")  # phase 6: off / on / on / off, then profiled
+# float64: caps low enough that every case has rows to resume
+F64_CAPS = (2, 5)
 # phase 5: float64 episodes (scenario, config overrides), warm, duals carried
 EPISODES_F64 = {
     "rear_barrier": ("scenario_two_straight", {"use_last_solution": True}),
@@ -112,8 +155,11 @@ EPISODES_F64 = {
         "solve_type": "alm", "use_last_solution": True,
         "weights": DUALS_MOVE}),
 }
-EPISODE_F64_BATCH = 256
-EPISODE_F64_TICKS = 5
+# cut from 256 rows and 5 ticks: the plain episodes, eager PyTorch bound by
+# the host, took a third of the script's time
+EPISODE_F64_BATCH = 128
+EPISODE_F64_TICKS = 3
+EPISODE_F64_SCHEDULE = dict(straggler_cap=F64_CAPS)
 
 # Operations per unit of the kernel's work, counted from csrc/cilqr_kernel.cu:
 # each add, multiply, divide, compare and transcendental is one operation,
@@ -148,15 +194,14 @@ def gpu_line():
     return out.strip().splitlines()[0].strip()
 
 
-def ptxas_summary(log):
-    """{instantiation: registers, stack and spill bytes} from nvcc -Xptxas -v."""
+def ptxas_summary(log, name_of):
+    """{kernel: registers, stack and spill bytes} from nvcc -Xptxas -v;
+    ``name_of`` maps a ptxas line naming an entry function to the kernel's
+    name (None for another function)."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
-            m = re.search(r"cilqr_solve_kernelI([fd])Lb([01])ELb([01])E", line)
-            cur = None if m is None else "cilqr_solve_{}_{}_{}".format(
-                "f32" if m[1] == "f" else "f64", ("rear", "gravity")[int(m[2])],
-                ("barrier", "alm")[int(m[3])])
+            cur = name_of(line)
             if cur:
                 out.setdefault(cur, {})
             continue
@@ -168,6 +213,18 @@ def ptxas_summary(log):
         if cur and m:
             out[cur]["registers"] = int(m[1])
     return out
+
+
+def solve_kernel_name(line):
+    m = re.search(r"cilqr_solve_kernelI([fd])Lb([01])ELb([01])E", line)
+    return None if m is None else "cilqr_solve_{}_{}_{}".format(
+        "f32" if m[1] == "f" else "f64", ("rear", "gravity")[int(m[2])],
+        ("barrier", "alm")[int(m[3])])
+
+
+def repro_kernel_name(line):
+    m = re.search(r"\d(resume_echo|dataflow_k1|dataflow_k2|carry)E", line)
+    return None if m is None else m[1]
 
 
 def bound(cfg, dtype, shape, work):
@@ -212,23 +269,85 @@ def phase_env():
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda.is_available() is false)")
     import ilqr_tpu_torch
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.ops.cuda import debug_repros as dr
 
     check(Path(ilqr_tpu_torch.__file__).resolve().is_relative_to(REPO),
           f"ilqr_tpu_torch imported from outside this checkout: {ilqr_tpu_torch.__file__}")
     line = gpu_line()
     print(line, flush=True)
     t0 = time.perf_counter()
-    _, log = ck.load_library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = [pool.submit(ck.load_library), pool.submit(dr.load_library)]
+        (_, log), (_, repro_log) = (b.result() for b in builds)
     build_s = time.perf_counter() - t0
-    ptxas = ptxas_summary(log)
+    ptxas = ptxas_summary(log, solve_kernel_name)
     check(len(ptxas) == 8 and all(len(v) == 4 for v in ptxas.values()),
           f"ptxas summary incomplete: {ptxas}")
+    repro_ptxas = ptxas_summary(repro_log, repro_kernel_name)
+    check(len(repro_ptxas) == 4 and all(len(v) == 4 for v in repro_ptxas.values()),
+          f"ptxas summary of the repro kernels incomplete: {repro_ptxas}")
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         nvidia_smi=line, nvcc=shutil.which("nvcc") or ck._nvcc(),
         triton=importlib.util.find_spec("triton") is not None,
-        build_seconds=round(build_s, 3), ptxas=ptxas)
+        build_seconds=round(build_s, 3), ptxas=ptxas, repro_ptxas=repro_ptxas)
     return line, ptxas
+
+
+def fields_of(sol):
+    """The tensors of a ``PackedSolution`` (the duals in ALM mode only)."""
+    return [t for t in sol if t is not None]
+
+
+def compaction_bitwise(cfg, w, p, one, caps):
+    """The kernel with compaction at ``caps`` against ``one``, the same
+    problem's one-launch solution: (bitwise equal in every output, resume
+    launches, the rows each later phase resumed)."""
+    import torch
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    name = ck.variant(cfg, p.x0.dtype) + "_resume"
+    before = ck.launches[name]
+    comp = ck.solve_packed(cfg, w, p, caps)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(fields_of(one), fields_of(comp)))
+    resumed = [int((one.stats[0] > c).sum()) for c in ck.straggler_schedule(caps, cfg.max_iter)[:-1]]
+    return equal, ck.launches[name] - before, resumed
+
+
+def resume_measure(cfg, w, p, caps, reps):
+    """The resume entry at the shape of a compacted solve's second phase:
+    the kernel's own solve capped at caps[0], its stragglers resumed up to
+    caps[1]; kernel ms (CUDA events) against the resumed plain version on
+    the same inputs, compared on rows of equal iterations and statuses.
+    None when no row is left to resume."""
+    import torch
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    dtype = p.x0.dtype
+    first = ck.cilqr_solve_kernel(cfg, w, p, max_iter=caps[0])
+    rows = ck.stragglers(first)
+    if rows.numel() == 0:
+        return None
+    sub = ck.resume_problem(p, first, rows, caps[0])
+    ms_k, k = vk.time_ms(lambda: ck.cilqr_solve_kernel(cfg, w, sub, max_iter=caps[1]), reps=reps)
+    work = {}
+    t0 = time.perf_counter()
+    r = ck.cilqr_solve_ref(cfg, w, sub, work=work, max_iter=caps[1])
+    torch.cuda.synchronize()
+    ms_r = (time.perf_counter() - t0) * 1e3
+    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
+    errs = {"u": float((k.u - r.u).abs()[:, :, same].max()),
+            "x": float((k.x - r.x).abs()[:, :, same].max())}
+    if cfg.solve_type == "alm":
+        errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
+        errs["rho"] = float((k.rho - r.rho).abs()[same].max())
+    work["iters"] = int((r.stats[0] - caps[0]).sum())  # the iterations this phase ran
+    return dict(variant=ck.variant(cfg, dtype) + "_resume", cfg=cfg, dtype=dtype,
+                err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
+                shape=shape_of(cfg, sub), rows=int(rows.numel()),
+                iters_status_equal=int(same.sum()), it0=caps[0], max_iter=caps[1])
 
 
 def phase_semantics_f64(case, batch=256):
@@ -252,11 +371,19 @@ def phase_semantics_f64(case, batch=256):
         errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
         errs["rho"] = float((k.rho - r.rho).abs()[same].max())
     err = max(errs.values())
+    bitwise = {caps: compaction_bitwise(cfg, w, p, k, caps) for caps in (COLD_CAPS, F64_CAPS)}
+    res = resume_measure(cfg, w, p, F64_CAPS, reps=1)
     fields = dict(variant=ck.variant(cfg, torch.float64), scenario=name, batch=batch,
                   iters_status_equal=n_same, rows=batch,
                   **{f"max_abs_err_{key}": v for key, v in errs.items()}, tol=1e-6,
                   kernel_ms=ms_k, plain_ms=ms_r, plain_work=work,
-                  mean_iters=float(r.stats[0].mean()))
+                  mean_iters=float(r.stats[0].mean()),
+                  compaction_bitwise={str(c): b[0] for c, b in bitwise.items()},
+                  compaction_resume_launches={str(c): b[1] for c, b in bitwise.items()},
+                  compaction_rows_resumed={str(c): b[2] for c, b in bitwise.items()},
+                  resume=None if res is None else {
+                      key: res[key] for key in ("rows", "it0", "max_iter", "iters_status_equal",
+                                                "errs", "ms", "plain_ms")})
     if cfg.solve_type == "alm":
         fields.update(dual_rows_moved=int((r.mu.flatten(0, 1) > 0).any(0).sum()),
                       rho_max=float(r.rho.max()))
@@ -266,9 +393,16 @@ def phase_semantics_f64(case, batch=256):
     if case == "gravity_alm_duals_move":
         check(fields["dual_rows_moved"] > 0 and fields["rho_max"] > 20.0,
               "the duals did not move")
+    for caps, (equal, n_resume, _) in bitwise.items():
+        check(equal, f"{case}: f64 compaction {caps} differs from one launch")
+        check(n_resume <= len(caps), f"{case}: {n_resume} resume launches at {caps}")
+    check(res is not None, f"{case}: no row left to resume after {F64_CAPS[0]} iterations")
+    check(res["iters_status_equal"] >= 0.99 * res["rows"] and res["err"] <= 1e-6,
+          f"{case}: f64 resume vs plain: {res['iters_status_equal']}/{res['rows']} rows equal, "
+          f"max abs err {res['err']:.3e}")
     work["iters"] = int(r.stats[0].sum())
-    return dict(variant=fields["variant"], cfg=cfg, dtype=torch.float64, err=err, ms=ms_k,
-                plain_ms=ms_r, work=work, shape=shape_of(cfg, p))
+    return (dict(variant=fields["variant"], cfg=cfg, dtype=torch.float64, err=err, ms=ms_k,
+                 plain_ms=ms_r, work=work, shape=shape_of(cfg, p)), res)
 
 
 def phase_f32_anchor():
@@ -311,13 +445,17 @@ def phase_f32_path_shape(path, batch=BATCH):
                                           | (r.rho > w.alm_rho_init)).sum()),
                      rho_max=float(r.rho.max()))
     err = max(errs.values())
+    res = resume_measure(cfg, w, p, COLD_CAPS, reps=3) if path in SCHEDULES else None
+    resume = {} if res is None else dict(resume={
+        key: res[key] for key in ("rows", "it0", "max_iter", "iters_status_equal", "errs", "ms",
+                                  "plain_ms")})
     say("phase2b_f32_main_shape" if path == "main" else f"phase2b_f32_{path}",
         variant=ck.variant(cfg, torch.float32), scenario=name, batch=batch,
         conv_kernel=float(conv_k.mean()), conv_plain=float(conv_r.mean()),
         cost_relerr_p90=cost_p90, pos_absdiff_p90=pos_p90,
         iters_status_equal=int(same.sum()),
         **{f"max_abs_err_{key}_on_equal_rows": v for key, v in errs.items()}, **duals,
-        kernel_ms=ms_k, plain_ms=ms_r, plain_work=work)
+        kernel_ms=ms_k, plain_ms=ms_r, plain_work=work, **resume)
     check(gap <= 0.03, f"{path}: conv fraction kernel vs plain differs by {gap:.4f} > 0.03")
     check(cost_p90 < 1e-3, f"{path}: cost relerr p90 {cost_p90:.3e} >= 1e-3")
     check(pos_p90 < 5e-2, f"{path}: position p90 {pos_p90:.3e} >= 5e-2 m")
@@ -329,15 +467,77 @@ def phase_f32_path_shape(path, batch=BATCH):
     if path in DUALS_MOVE_PATHS:
         check(duals["dual_rows_moved"] > 0 and duals["rho_max"] > float(w.alm_rho_init),
               f"{path}: the duals did not move")
+    if path in SCHEDULES:
+        check(res is not None, f"{path}: no row left to resume after {COLD_CAPS[0]} iterations")
     work["iters"] = int(r.stats[0].sum())
-    return dict(variant=ck.variant(cfg, torch.float32), cfg=cfg, dtype=torch.float32, err=err,
-                ms=ms_k, plain_ms=ms_r, work=work, shape=shape_of(cfg, p))
+    return (dict(variant=ck.variant(cfg, torch.float32), cfg=cfg, dtype=torch.float32, err=err,
+                 ms=ms_k, plain_ms=ms_r, work=work, shape=shape_of(cfg, p)), res)
 
 
-def run_path(name, over, dtype, batch, ticks):
+def phase_compaction_f32(batch=BATCH):
+    """2c: compaction at the bench's cold caps against one launch, bitwise,
+    for every float32 instantiation (the phase 1 cases)."""
+    import torch
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    for case, (name, over, wover) in vk.CASES.items():
+        cfg, w, p = vk.packed_cold(name, batch, weights=wover, **over)
+        one = ck.cilqr_solve_kernel(cfg, w, p)
+        equal, n_resume, resumed = compaction_bitwise(cfg, w, p, one, COLD_CAPS)
+        say(f"phase2c_f32_compaction_{case}", variant=ck.variant(cfg, torch.float32),
+            scenario=name, batch=batch, caps=COLD_CAPS, bitwise_equal=equal,
+            resume_launches=n_resume, rows_resumed=resumed)
+        check(equal, f"{case}: f32 compaction {COLD_CAPS} differs from one launch")
+        check(n_resume == sum(n > 0 for n in resumed),
+              f"{case}: {n_resume} resume launches for rows {resumed}")
+
+
+class LaunchTimer:
+    """Records a CUDA event pair around every launch of the solve kernel
+    (``cilqr_solve_kernel``, which the compaction calls once per phase) and
+    the batch of each; a launch not through the resume entry starts a new
+    tick."""
+
+    def __enter__(self):
+        import torch
+        from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+        self.ticks, self._ck, self._launch = [], ck, ck.cilqr_solve_kernel
+
+        def timed(cfg, w, p, max_iter=None):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._launch(cfg, w, p, max_iter)
+            end.record()
+            if p.stats is None:
+                self.ticks.append([])
+            self.ticks[-1].append((start, end, p.x0.shape[1]))
+            return out
+
+        ck.cilqr_solve_kernel = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ck.cilqr_solve_kernel = self._launch
+
+    def kernel_ms(self):
+        """Each tick's launches' device time, summed."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [sum(s.elapsed_time(e) for s, e, _ in t) for t in self.ticks]
+
+    def resumed_rows(self, phases):
+        """rows[t][i]: the rows the (i + 1)-th phase of tick t resumed (0
+        when it was skipped)."""
+        return [[t[i + 1][2] if i + 1 < len(t) else 0 for i in range(phases)] for t in self.ticks]
+
+
+def run_path(name, over, dtype, batch, ticks, schedule=None):
     """One batch of episodes through ``run_mpc_kernel`` on the card, with the
-    launch counts set to 0 just before and read just after. Also returns
-    the episode's inputs."""
+    launch counts set to 0 just before and read just after; ``schedule``
+    holds its straggler caps. Also returns the episode's inputs."""
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
@@ -353,10 +553,140 @@ def run_path(name, over, dtype, batch, ticks):
     t0 = time.perf_counter()
     out = run_mpc_kernel(cfg, w, x0, sc.ref_line, sc.ref_velo, obs_b, sc.road_borders, ticks,
                          window=384, proj_rows_per_step=rows, w_back=24,
-                         return_alm=cfg.solve_type == "alm")
+                         return_alm=cfg.solve_type == "alm", **(schedule or {}))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     return cfg, out, total, dict(ck.launches), (w, x0, sc, obs_b, rows)
+
+
+def episode_tensors(out):
+    """Every tensor of a ``run_mpc_kernel`` result: ego, u, the six stats
+    and (ALM) the duals."""
+    ego, us, st = out[:3]
+    return [ego, us, st.iters, st.status, st.converged, st.lamb_overflow, st.final_cost,
+            st.final_lamb] + (list(out[3]) if len(out) == 4 else [])
+
+
+def check_schedule_launches(tag, variant, launches, ticks, caps):
+    resume = launches.get(variant + "_resume", 0)
+    check(launches.get(variant) == ticks and set(launches) <= {variant, variant + "_resume"},
+          f"{tag}: launches {launches} in {ticks} ticks")
+    check(0 < resume <= ticks * caps, f"{tag}: {resume} resume launches in {ticks} ticks")
+
+
+def profile_run(fn):
+    """Run ``fn`` under ``torch.profiler``: wall seconds, the device's busy
+    seconds (the union of its kernels' and copies' spans) and idle share,
+    and the device ms of the largest kernels by name. The share is None
+    when the trace holds no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    busy = busy_us / 1e6
+    return dict(wall_s=wall, device_busy_s=busy if spans else None,
+                idle_share=1.0 - busy / wall if spans else None,
+                top_device_ms=dict(by_name.most_common(6)))
+
+
+def stats_ms(values):
+    import numpy as np
+
+    v = np.asarray(values, dtype=float)
+    return dict(sum=float(v.sum()), mean=float(v.mean()), p50=float(np.percentile(v, 50)),
+                p90=float(np.percentile(v, 90)), max=float(v.max()))
+
+
+def phase_path(path, card, batch=BATCH):
+    """The path's episodes, once without compaction (the phase 3 / 4 gates)
+    and, with a schedule, once with (bitwise equal to the first); on the
+    timed paths off / on / on / off with per-tick kernel times and a
+    profiled fifth run (phase 6). Returns the launches of the run with
+    compaction where there is one, else of the run without."""
+    import torch
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    name, over, ticks = PATHS[path]
+    schedule = SCHEDULES.get(path)
+    modes = (("off", "on", "on", "off") if path in TIMED_PATHS
+             else ("off", "on") if schedule else ("off",))
+    runs = []
+    for mode in modes:
+        with LaunchTimer() as timer:
+            cfg, out, total, launches, inputs = run_path(
+                name, over, torch.float32, batch, ticks, schedule if mode == "on" else None)
+        runs.append(dict(mode=mode, out=out, total=total, launches=launches, timer=timer))
+    out, total, launches = runs[0]["out"], runs[0]["total"], runs[0]["launches"]
+    ego, us, stats = out[:3]
+    variant = ck.variant(cfg, torch.float32)
+    final_x = float(ego[-1, :, 0].mean())
+    fields = dict(card=card, scenario=name, variant=variant, batch=batch, ticks=ticks,
+                  ticks_cut_from=FULL_TICKS.get(path, ticks), total_s=total,
+                  ms_per_tick=total / ticks * 1e3,
+                  solves_per_s=batch * ticks / total,
+                  mean_iters=float(stats.iters.float().mean()), final_ego_x_mean=final_x,
+                  conv_frac=float(stats.converged.float().mean()), launches=launches)
+    finite = bool(torch.isfinite(ego).all() and torch.isfinite(us).all())
+    if len(out) == 4:
+        mu, rho = out[3]
+        moved = (mu.flatten(1) > 0).any(1) | (rho > inputs[0].alm_rho_init)
+        fields.update(mu_max=float(mu.max()), rho_mean=float(rho.mean()),
+                      rho_max=float(rho.max()), dual_rows_moved=int(moved.sum()))
+        finite = finite and bool(torch.isfinite(mu).all() and torch.isfinite(rho).all())
+    say("phase3_main_path" if path == "main" else f"phase4_path_{path}", **fields)
+    check(launches == {variant: ticks}, f"{path}: launches {launches} in {ticks} ticks")
+    check(tuple(ego.shape) == (ticks + 1, batch, 4), f"{path}: ego shape {tuple(ego.shape)}")
+    check(tuple(us.shape) == (ticks, batch, cfg.N, 2), f"{path}: u shape {tuple(us.shape)}")
+    check(finite, f"{path}: non-finite episode")
+    if path == "main":
+        check(abs(final_x - EGO_X_ANCHOR) <= EGO_X_TOL,
+              f"final_ego_x_mean {final_x:.4f} not within {EGO_X_TOL} of {EGO_X_ANCHOR}")
+    if path in DUALS_MOVE_PATHS:
+        check(fields["dual_rows_moved"] > 0, f"{path}: the duals did not move")
+    if not schedule:
+        return launches
+
+    # compaction on: the same episodes, bit for bit
+    phases = len(schedule["straggler_cap"])
+    ref = episode_tensors(out)
+    on = [r for r in runs if r["mode"] == "on"]
+    for r in on:
+        check(all(torch.equal(a, b) for a, b in zip(ref, episode_tensors(r["out"]))),
+              f"{path}: the episode with compaction differs from the one without")
+        check_schedule_launches(path, variant, r["launches"], ticks, phases)
+    resumed = on[0]["timer"].resumed_rows(phases)
+    first, warm = resumed[0], resumed[1:]
+    say("phase3_main_path_compaction" if path == "main" else f"phase4_path_{path}_compaction",
+        scenario=name, variant=variant, schedule=schedule, bitwise_equal_runs=len(on),
+        final_ego_x_mean=float(on[0]["out"][0][-1, :, 0].mean()), total_s=on[0]["total"],
+        launches=on[0]["launches"], rows_resumed_tick0=first,
+        rows_resumed_later_mean=[float(sum(t[i] for t in warm) / max(len(warm), 1))
+                                 for i in range(phases)],
+        rows_resumed_later_max=[max((t[i] for t in warm), default=0) for i in range(phases)])
+    if path in TIMED_PATHS:
+        prof = profile_run(lambda: run_path(name, over, torch.float32, batch, ticks, schedule))
+        say(f"phase6_compaction_timing_{path}", card=card, scenario=name, ticks=ticks,
+            order=[r["mode"] for r in runs], episode_s=[r["total"] for r in runs],
+            kernel_ms_per_tick=[stats_ms(r["timer"].kernel_ms()) for r in runs],
+            tick0_kernel_ms=[r["timer"].kernel_ms()[0] for r in runs],
+            profiled_on=prof)
+    return on[0]["launches"]
 
 
 def plain_episode(cfg, w, x0, sc, obs_b, rows, ticks):
@@ -394,47 +724,13 @@ def plain_episode(cfg, w, x0, sc, obs_b, rows, ticks):
             duals if alm else None)
 
 
-def phase_path(path, card, batch=BATCH):
-    import torch
-    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
-
-    name, over, ticks = PATHS[path]
-    cfg, out, total, launches, inputs = run_path(name, over, torch.float32, batch, ticks)
-    ego, us, stats = out[:3]
-    variant = ck.variant(cfg, torch.float32)
-    final_x = float(ego[-1, :, 0].mean())
-    fields = dict(card=card, scenario=name, variant=variant, batch=batch, ticks=ticks,
-                  ticks_cut_from=FULL_TICKS.get(path, ticks), total_s=total,
-                  ms_per_tick=total / ticks * 1e3,
-                  solves_per_s=batch * ticks / total,
-                  mean_iters=float(stats.iters.float().mean()), final_ego_x_mean=final_x,
-                  conv_frac=float(stats.converged.float().mean()), launches=launches)
-    finite = bool(torch.isfinite(ego).all() and torch.isfinite(us).all())
-    if len(out) == 4:
-        mu, rho = out[3]
-        moved = (mu.flatten(1) > 0).any(1) | (rho > inputs[0].alm_rho_init)
-        fields.update(mu_max=float(mu.max()), rho_mean=float(rho.mean()),
-                      rho_max=float(rho.max()), dual_rows_moved=int(moved.sum()))
-        finite = finite and bool(torch.isfinite(mu).all() and torch.isfinite(rho).all())
-    say("phase3_main_path" if path == "main" else f"phase4_path_{path}", **fields)
-    check(launches == {variant: ticks}, f"{path}: launches {launches} in {ticks} ticks")
-    check(tuple(ego.shape) == (ticks + 1, batch, 4), f"{path}: ego shape {tuple(ego.shape)}")
-    check(tuple(us.shape) == (ticks, batch, cfg.N, 2), f"{path}: u shape {tuple(us.shape)}")
-    check(finite, f"{path}: non-finite episode")
-    if path == "main":
-        check(abs(final_x - EGO_X_ANCHOR) <= EGO_X_TOL,
-              f"final_ego_x_mean {final_x:.4f} not within {EGO_X_TOL} of {EGO_X_ANCHOR}")
-    if path in DUALS_MOVE_PATHS:
-        check(fields["dual_rows_moved"] > 0, f"{path}: the duals did not move")
-    return launches
-
-
 def phase_episode_f64(case, batch=EPISODE_F64_BATCH, ticks=EPISODE_F64_TICKS):
     import torch
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
     name, over = EPISODES_F64[case]
-    cfg, ko, k_s, launches, inputs = run_path(name, over, torch.float64, batch, ticks)
+    cfg, ko, k_s, launches, inputs = run_path(name, over, torch.float64, batch, ticks,
+                                              EPISODE_F64_SCHEDULE)
     t0 = time.perf_counter()
     ego_r, u_r, it_r, st_r, duals_r = plain_episode(cfg, *inputs, ticks)
     torch.cuda.synchronize()
@@ -451,13 +747,97 @@ def phase_episode_f64(case, batch=EPISODE_F64_BATCH, ticks=EPISODE_F64_TICKS):
         extra = dict(mu_max=float(duals_r[0].max()), rho_max=float(duals_r[1].max()))
     err = max(errs.values())
     say(f"phase5_f64_episode_{case}", variant=variant, scenario=name, batch=batch,
-        ticks=ticks, rows_iters_status_equal_every_tick=n_same,
+        ticks=ticks, schedule=EPISODE_F64_SCHEDULE, rows_iters_status_equal_every_tick=n_same,
         **{f"max_abs_err_{key}": v for key, v in errs.items()}, tol=1e-6,
         kernel_s=k_s, plain_s=r_s, launches=launches, **extra)
-    check(launches == {variant: ticks}, f"{case}: launches {launches} in {ticks} ticks")
+    check_schedule_launches(case, variant, launches, ticks, len(F64_CAPS))
     check(n_same >= 0.99 * batch, f"{case}: per-tick iters equal on {n_same}/{batch} rows")
     check(err <= 1e-6, f"{case}: f64 episode max abs err {err:.3e} > 1e-6")
     return launches
+
+
+# the repro kernels: name -> (what it replaces, float32 rows per column the
+# function must read and write, operations per column)
+REPROS = {
+    "min_resume_echo": ("tools/debug/min_resume_repro.py:18", 9 * 8 + 8, 16 * 8),
+    "min_dataflow_k1": ("tools/debug/min_dataflow_repro.py:25", 8 + 64 + 8, 4 * 8),
+    "min_dataflow_k2": ("tools/debug/min_dataflow_repro.py:33", 8 + 8 + 8, 8),
+    "min_carry": ("tools/debug/min_carry_repro.py:16", 1 + 6 + 8, 1 + 2 * 6),
+    "min_zerotrip": ("tools/debug/min_zerotrip_repro.py:14", 6 + 8, 0),  # x0 is not needed
+}
+
+
+def phase_debug_repros(card):
+    """7: each repro flow once with the counts at 0, then each kernel held
+    bitwise to its plain version and to the repro's closed form
+    (``want_*`` in tools/debug), and timed."""
+    import numpy as np
+    import torch
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+    from ilqr_tpu_torch.ops.cuda import debug_repros as dr
+
+    ins = dr.repro_inputs(DEVICE)
+    x, done = ins["dataflow"]
+    x0, res = ins["carry"]
+    torch.cuda.synchronize()
+    dr.launches.clear()
+    got = dict(min_resume_echo=dr.resume_echo(*ins["resume"]), min_dataflow=dr.dataflow(x, done),
+               min_carry=dr.carry(x0, res), min_zerotrip=dr.zerotrip(x0, res))
+    torch.cuda.synchronize()
+    launches = dict(dr.launches)
+    check(launches == {name: 1 for name in REPROS}, f"repro launches {launches}")
+    u, s = dr.dataflow_k1_ref(x)
+    perm = torch.argsort(done, stable=True)
+    plain = dict(min_resume_echo=dr.resume_echo_ref(*ins["resume"]),
+                 min_dataflow=(dr.dataflow_k2_ref(u[:, perm], s[:, perm])[:, torch.argsort(perm)],
+                               u, s),
+                 min_carry=dr.carry_ref(x0, res, 2), min_zerotrip=dr.carry_ref(x0, res, 0))
+    xn = x.cpu().numpy()
+    want_u, want_s = 2.0 * xn + 1.0, 3.0 * xn - 5.0
+    closed = dict(
+        min_resume_echo=np.array_equal(got["min_resume_echo"].cpu().numpy(),
+                                       ins["resume"][-1].cpu().numpy()),
+        min_dataflow=(np.array_equal(got["min_dataflow"][1][:8].cpu().numpy(), want_u)
+                      and np.array_equal(got["min_dataflow"][2].cpu().numpy(), want_s)
+                      and np.array_equal(got["min_dataflow"][0].cpu().numpy(), want_s + want_u)),
+        min_carry=np.array_equal(got["min_carry"][:6].cpu().numpy(), res[:6].cpu().numpy()),
+        min_zerotrip=np.array_equal(got["min_zerotrip"][:6].cpu().numpy(),
+                                    res[:6].cpu().numpy()))
+    for key in got:
+        a = got[key] if isinstance(got[key], tuple) else (got[key],)
+        b = plain[key] if isinstance(plain[key], tuple) else (plain[key],)
+        check(all(torch.equal(p, q) for p, q in zip(a, b)), f"{key}: kernel differs from plain")
+        check(closed[key], f"{key}: differs from the repro's closed form")
+    u1, s1 = got["min_dataflow"][1], got["min_dataflow"][2]
+    calls = {  # kernel, plain version, one library call of the same function (or None)
+        "min_resume_echo": (lambda: dr.resume_echo(*ins["resume"]),
+                            lambda: dr.resume_echo_ref(*ins["resume"]),
+                            lambda: ins["resume"][-1].clone()),
+        "min_dataflow_k1": (lambda: dr.dataflow_k1(x), lambda: dr.dataflow_k1_ref(x), None),
+        "min_dataflow_k2": (lambda: dr.dataflow_k2(u1, s1), lambda: dr.dataflow_k2_ref(u1, s1),
+                            lambda: torch.add(s1, u1[:8])),
+        "min_carry": (lambda: dr.carry(x0, res), lambda: dr.carry_ref(x0, res, 2),
+                      lambda: res.clone()),
+        "min_zerotrip": (lambda: dr.zerotrip(x0, res), lambda: dr.carry_ref(x0, res, 0),
+                         lambda: res.clone()),
+    }
+    kernels = []
+    for name, (kernel, ref, lib) in calls.items():
+        reps = 200
+        ms, _ = vk.time_ms(kernel, reps)
+        plain_ms, _ = vk.time_ms(ref, reps)
+        lib_ms = vk.time_ms(lib, reps)[0] if lib else None
+        replaces, rows, ops = REPROS[name]
+        t_bytes = rows * dr.BP * 4 / PEAK_BYTES * 1e3
+        t_ops = ops * dr.BP / PEAK_OPS["f32"] * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": REPRO_SOURCE, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "batch": dr.BP})
+    say("phase7_debug_repros", card=card, launches=launches, bitwise_plain=True,
+        closed_form=closed, kernels=kernels)
+    return kernels
 
 
 def main():
@@ -466,32 +846,39 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card, ptxas = phase_env()
     f64 = [phase_semantics_f64(case) for case in vk.CASES]
     phase_f32_anchor()
     f32 = [phase_f32_path_shape(path) for path in PATHS]
-    launches = collections.Counter()  # summed over the runs, each counted from 0
+    phase_compaction_f32()
+    launches = collections.Counter()  # summed over the paths, each run counted from 0
     for path in PATHS:
         launches.update(phase_path(path, card))
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
-    # one entry per instantiation: its time on its first case's inputs,
-    # its error the largest of its cases'
+    repro_kernels = phase_debug_repros(card)
+    # one entry per kernel: its time on its first case's inputs, its error
+    # the largest of its cases'
     measured = {}
-    for res in f64 + f32:
+    for res in [r for pair in f64 + f32 for r in pair if r is not None]:
         first = measured.setdefault(res["variant"], res)
         first["err"] = max(first["err"], res["err"])
     check(set(measured) == set(launches), f"{sorted(measured)} vs {sorted(launches)}")
     kernels = []
     for name, res in sorted(measured.items()):
         bound_ms, bound_by = bound(res["cfg"], res["dtype"], res["shape"], res["work"])
+        resume = name.endswith("_resume")
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": RESUME_REPLACES if resume else REPLACES,
             "launches": launches[name], "max_abs_err": res["err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "batch": res["shape"]["B"], **ptxas[name]})
+            "library_ms": None, "batch": res["shape"]["B"],
+            **ptxas[name.removesuffix("_resume")]})
+    say("done", script_s=time.perf_counter() - t_start)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + repro_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,8 @@
 // (exponential barrier; augmented Lagrangian with the duals as input and
 // output), warm-start controls, serial line search, squared-distance
 // first-min projection over a per-scenario reference-line window with
-// per-step row limits. It computes what that kernel computes (reference
+// per-step row limits, and the resume entry of straggler compaction
+// (:97-105, :1156-1168: restart at iteration it0 from a stats slab). It computes what that kernel computes (reference
 // semantics: src/cilqr_solver.cpp:85-461 of the C++ project), not its
 // TPU layout: each thread walks the reference's loop shape over its own
 // scenario, with trajectory, gains and projection in per-thread arrays.
@@ -17,8 +18,10 @@
 // largest term), and the per-thread arrays live in local memory. The main
 // path's 8192 scenarios at 128 threads per block are 64 blocks on 132 SMs,
 // so latency and occupancy bound it, not bytes; and a block waits for its
-// slowest scenario. Later work: smaller blocks, a warp per scenario for the
-// window scan, compaction of unfinished scenarios between launches.
+// slowest scenario. Compaction of unfinished scenarios between launches
+// (the resume entry) cannot shorten that slowest chain when the whole batch
+// is resident at once; it is exact, and off by default. Later work: smaller
+// blocks, a warp per scenario for the window scan.
 //
 // Layout: every input and output array is scenario-fastest ([row][B]), so
 // neighbouring threads read neighbouring addresses. See
@@ -112,6 +115,10 @@ __device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
 __device__ __forceinline__ double sqrt_(double a) { return sqrt(a); }
 __device__ __forceinline__ float hypot_(float a, float b) { return hypotf(a, b); }
 __device__ __forceinline__ double hypot_(double a, double b) { return hypot(a, b); }
+// iterations and statuses come back from a stats slab of T: round, do not
+// truncate
+__device__ __forceinline__ int rint_(float a) { return __float2int_rn(a); }
+__device__ __forceinline__ int rint_(double a) { return __double2int_rn(a); }
 
 // One scenario's trajectory: controls 0..N-1, states 0..N and the nearest
 // window row (x, y, yaw) of every state.
@@ -635,10 +642,18 @@ __device__ void dual_update(Ctx<T, G, true>& c, const Traj<T>& t) {
   c.rho = r > c.a.max_rho ? c.a.max_rho : r;
 }
 
+// Resume entry (stats_in != nullptr): the thread restarts a solve stopped
+// before iteration it0. uinit holds the controls it had, whose rollout
+// (the same `propagate` on the same values as the trial that produced
+// them) is the trajectory it had, bit for bit; J is recomputed from it
+// under the incoming duals (mu_in / rho_in, the stopped solve's mu_out /
+// rho_out), as the stopped solve carried it; iterations, status and lambda
+// come from stats_in, in the stats_out layout. A row that stopped
+// converged or overflowed is passed through unchanged.
 template <typename T, bool G, bool A>
 __global__ void __launch_bounds__(kBlock)
     cilqr_solve_kernel(const Weights<T> w, const RowLimits lim, const Problem<T> p,
-                       const AlmArgs<T> alm) {
+                       const AlmArgs<T> alm, const T* __restrict__ stats_in, const int it0) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.B) return;  // ragged last block
   Ctx<T, G, A> c;
@@ -686,9 +701,17 @@ __global__ void __launch_bounds__(kBlock)
   T J = total_cost(c, cur);
 
   T lamb = w.init_lamb;
-  int status = kRunning, iters = 0;
+  int status = kRunning, iters = 0, it = 0;
   bool converged = false, overflow = false;
-  for (int it = 0; it < p.max_iter; ++it) {
+  if (stats_in) {
+    iters = rint_(c.at(stats_in, 0));
+    status = rint_(c.at(stats_in, 1));
+    converged = c.at(stats_in, 2) > T(0.5);
+    overflow = c.at(stats_in, 3) > T(0.5);
+    lamb = c.at(stats_in, 5);
+    it = converged || overflow ? p.max_iter : it0;
+  }
+  for (; it < p.max_iter; ++it) {
     T dV1, dV2;
     const bool pd = backward(c, cur, lamb, K, d, dV1, dV2);
     bool accepted = false, conv_now = false, small = false;
@@ -770,21 +793,22 @@ __global__ void __launch_bounds__(kBlock)
 
 template <typename T, bool G, bool A>
 int launch_variant(const Weights<T>& w, const RowLimits& lim, const Problem<T>& p,
-                   const AlmArgs<T>& alm, cudaStream_t stream) {
-  cilqr_solve_kernel<T, G, A><<<(p.B + kBlock - 1) / kBlock, kBlock, 0, stream>>>(w, lim, p,
-                                                                               alm);
+                   const AlmArgs<T>& alm, const T* stats_in, int it0, cudaStream_t stream) {
+  cilqr_solve_kernel<T, G, A><<<(p.B + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+      w, lim, p, alm, stats_in, it0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T* rx,
            const T* ry, const T* ryaw, const T* ox, const T* oy, const T* oyaw, const T* mu_in,
-           const T* rho_in, T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out, int B,
-           int N, int M, int W, int max_iter, int n_alphas, int gravity, int alm,
-           cudaStream_t stream) {
+           const T* rho_in, const T* stats_in, T* u_out, T* x_out, T* stats_out, T* mu_out,
+           T* rho_out, int B, int N, int M, int W, int max_iter, int it0, int n_alphas,
+           int gravity, int alm, cudaStream_t stream) {
   static_assert(sizeof(Weights<T>) == kNumWeights * sizeof(T), "weights layout");
   if (B < 0 || N < 1 || N + 1 > kMaxSteps || M < 0 || W < 1 || max_iter < 0 || n_alphas < 0)
     return cudaErrorInvalidValue;
+  if (it0 < 0 || (!stats_in && it0 != 0)) return cudaErrorInvalidValue;
   if (alm && !(mu_in && rho_in && mu_out && rho_out)) return cudaErrorInvalidValue;
   Weights<T> w;
   std::memcpy(&w, wts, sizeof(w));
@@ -799,41 +823,44 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
   const AlmArgs<T> a = {mu_in, rho_in, mu_out, rho_out, wts[kNumWeights],
                         wts[kNumWeights + 1], wts[kNumWeights + 2]};
   if (gravity) {
-    return alm ? launch_variant<T, true, true>(w, lim, p, a, stream)
-               : launch_variant<T, true, false>(w, lim, p, a, stream);
+    return alm ? launch_variant<T, true, true>(w, lim, p, a, stats_in, it0, stream)
+               : launch_variant<T, true, false>(w, lim, p, a, stats_in, it0, stream);
   }
-  return alm ? launch_variant<T, false, true>(w, lim, p, a, stream)
-             : launch_variant<T, false, false>(w, lim, p, a, stream);
+  return alm ? launch_variant<T, false, true>(w, lim, p, a, stats_in, it0, stream)
+             : launch_variant<T, false, false>(w, lim, p, a, stats_in, it0, stream);
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `wts` and `limits` are host
 // arrays: kNumWeights + kNumAlmWeights scalars in _WEIGHT_ORDER and N+1 row
-// limits; every
-// other pointer is device memory (the four dual pointers may be null when
-// alm == 0). `gravity` and `alm` pick the instantiation. Returns the
-// launch's cudaError_t.
+// limits; every other pointer is device memory (the four dual pointers may
+// be null when alm == 0). `stats_in` (6, B), or null, selects the resume
+// entry, which runs iterations [it0, max_iter); it0 is 0 without it.
+// `gravity` and `alm` pick the instantiation. Returns the launch's
+// cudaError_t.
 extern "C" int cilqr_solve_f32(const float* wts, const int* limits, const float* x0,
                                const float* uinit, const float* rx, const float* ry,
                                const float* ryaw, const float* ox, const float* oy,
                                const float* oyaw, const float* mu_in, const float* rho_in,
-                               float* u_out, float* x_out, float* stats_out, float* mu_out,
-                               float* rho_out, int B, int N, int M, int W, int max_iter,
-                               int n_alphas, int gravity, int alm, void* stream) {
-  return launch<float>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in, u_out,
-                       x_out, stats_out, mu_out, rho_out, B, N, M, W, max_iter, n_alphas,
-                       gravity, alm, static_cast<cudaStream_t>(stream));
+                               const float* stats_in, float* u_out, float* x_out,
+                               float* stats_out, float* mu_out, float* rho_out, int B, int N,
+                               int M, int W, int max_iter, int it0, int n_alphas, int gravity,
+                               int alm, void* stream) {
+  return launch<float>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,
+                       stats_in, u_out, x_out, stats_out, mu_out, rho_out, B, N, M, W, max_iter,
+                       it0, n_alphas, gravity, alm, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cilqr_solve_f64(const double* wts, const int* limits, const double* x0,
                                const double* uinit, const double* rx, const double* ry,
                                const double* ryaw, const double* ox, const double* oy,
                                const double* oyaw, const double* mu_in, const double* rho_in,
-                               double* u_out, double* x_out, double* stats_out, double* mu_out,
-                               double* rho_out, int B, int N, int M, int W, int max_iter,
-                               int n_alphas, int gravity, int alm, void* stream) {
+                               const double* stats_in, double* u_out, double* x_out,
+                               double* stats_out, double* mu_out, double* rho_out, int B, int N,
+                               int M, int W, int max_iter, int it0, int n_alphas, int gravity,
+                               int alm, void* stream) {
   return launch<double>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,
-                        u_out, x_out, stats_out, mu_out, rho_out, B, N, M, W, max_iter, n_alphas,
-                        gravity, alm, static_cast<cudaStream_t>(stream));
+                        stats_in, u_out, x_out, stats_out, mu_out, rho_out, B, N, M, W,
+                        max_iter, it0, n_alphas, gravity, alm, static_cast<cudaStream_t>(stream));
 }

@@ -41,6 +41,17 @@ rho in the input layout.
 first-min projection. ``cilqr_solve_cuda`` takes it for CPU tensors only;
 for a CUDA tensor it launches the kernel or raises.
 
+Straggler compaction (``solve_packed``, the host side of
+ilqr_tpu/ops/pallas/cilqr_kernel.py:1596-1644): phase 1 runs every row up
+to the first cap; each later phase gathers the rows still running into
+dense arrays and resumes them where they stopped -- the kernel's resume
+entry takes the stats slab of the phase before and the iteration ``it0``
+it stopped at -- then scatters the results back. Exact: the resumed
+rollout of the carried controls is the trajectory the solve had. What the
+TPU needed and the card does not is left out: the lane interleave, the pad
+to 128 lanes and the relaunch of the whole sorted batch; only the
+stragglers are relaunched.
+
 The kernel is built at first use with nvcc into ``ilqr_tpu_torch/_build/``
 (a shared library with a plain C interface, loaded with ctypes), under a
 file name keyed by a hash of the source and flags.
@@ -63,7 +74,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ilqr_tpu_torch.models.bicycle import GRAVITY_CENTER, REAR_CENTER
-from ilqr_tpu_torch.solvers.cilqr import alpha_schedule, solve_from_controls
+from ilqr_tpu_torch.solvers.cilqr import ResumeState, alpha_schedule, solve_from_controls
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
 
 W_BACK = 64  # window rows behind the ego's initial projection
@@ -72,7 +83,8 @@ W_BACK = 64  # window rows behind the ego's initial projection
 _PROJ_SLACK = 16
 MAX_STEPS = 32  # the kernel's horizon bound: N + 1 <= MAX_STEPS
 
-# Kernel launches in this process, by instantiation (``variant``); only
+# Kernel launches in this process, by instantiation (``variant``; a launch
+# of the resume entry counts under ``variant + "_resume"``); only
 # ``cilqr_solve_kernel`` adds to them, once per launch.
 launches: collections.Counter = collections.Counter()
 
@@ -148,6 +160,11 @@ class PackedProblem:
     # src/cilqr_solver.cpp:88-93
     mu: Optional[torch.Tensor] = None  # (8 + 2M, N, B)
     rho: Optional[torch.Tensor] = None  # (B,)
+    # resume state: the stats slab (6, B) of a solve stopped before
+    # iteration it0 (rows neither converged nor overflowed), whose controls
+    # and duals are uinit, mu and rho; None starts at iteration 0
+    stats: Optional[torch.Tensor] = None
+    it0: int = 0
 
 
 class PackedSolution(NamedTuple):
@@ -206,11 +223,13 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
 
 
 def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
-                    work: Optional[dict] = None) -> PackedSolution:
+                    work: Optional[dict] = None,
+                    max_iter: Optional[int] = None) -> PackedSolution:
     """Plain version of the kernel: same packed inputs, same outputs, any
     dtype on any device (the eager solver with the windowed projection).
-    ``work`` receives the solver's trial and dual-update counts (see
-    ``solve_from_controls``)."""
+    Runs iterations [p.it0, max_iter) (``cfg.max_iter`` when None), from
+    ``p.stats`` when given. ``work`` receives the solver's trial and
+    dual-update counts (see ``solve_from_controls``)."""
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
     win = torch.stack([p.rx, p.ry, p.ryaw, torch.zeros_like(p.rx)], dim=-1)  # (W,B,4)
     obs = torch.stack([p.ox, p.oy, p.oyaw], dim=-1)[:M]  # (M, N+1, B, 3)
@@ -223,9 +242,13 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     limits = torch.tensor(p.row_limits, device=p.x0.device)
     C0 = cfg.num_constraints
     mu0 = None if p.mu is None else p.mu[:C0].permute(2, 1, 0)
+    resume = None
+    if p.stats is not None:  # iterations and statuses are stored as floats
+        resume = ResumeState(p.it0, p.stats[0].round().to(torch.int32),
+                             p.stats[1].round().to(torch.int32), p.stats[5])
     u, x, st, rho, mu = solve_from_controls(cfg, w, p.x0[:4].T, p.uinit.permute(2, 1, 0),
                                             scenario, p.rho, mu0, row_limits=limits,
-                                            work=work)
+                                            work=work, max_iter=max_iter, resume=resume)
     stats = torch.stack([st.iters.to(u.dtype), st.status.to(u.dtype),
                          st.converged.to(u.dtype), st.lamb_overflow.to(u.dtype),
                          st.final_cost, st.final_lamb])
@@ -245,50 +268,58 @@ def _nvcc() -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
-@functools.cache
-def load_library():
-    """Build the kernel library (once per source hash) and load it.
+def build_library(source: Path, stem: str):
+    """Build ``source`` with nvcc into a shared library in ``_build/`` (once
+    per hash of the source and flags) and load it with ctypes.
 
     Returns (ctypes library, the nvcc log of its build). Raises with nvcc's
     output when the build fails.
     """
-    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = _BUILD_DIR / f"libcilqr_{key.hexdigest()[:16]}.so"
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    so = _BUILD_DIR / f"{stem}_{key.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
         log_path.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so)), log_path.read_text() if log_path.exists() else ""
+
+
+@functools.cache
+def load_library():
+    """Build the kernel library (once per source hash) and load it.
+
+    Returns (ctypes library, the nvcc log of its build)."""
+    lib, log = build_library(_SOURCE, "libcilqr")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("cilqr_solve_f32", "cilqr_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 17 + [ci] * 8 + [vp]
+        fn.argtypes = [vp] * 18 + [ci] * 9 + [vp]
         fn.restype = ci
-    return lib, log_path.read_text() if log_path.exists() else ""
+    return lib, log
 
 
 def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
     """Raise unless ``p`` is what the kernel takes: contiguous arrays of one
     floating dtype on one device (those of ``p.x0``) in the packed shapes,
-    N + 1 row limits in [1, W], N + 1 <= MAX_STEPS, and duals (when given)
-    of C = 8 + 2M columns."""
+    N + 1 row limits in [1, W], N + 1 <= MAX_STEPS, duals (when given)
+    of C = 8 + 2M columns and a resume slab (when given) of 6 rows."""
     dtype, device = p.x0.dtype, p.x0.device
     N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
     if N + 1 > MAX_STEPS:
         raise ValueError(f"N={N} exceeds the kernel's horizon bound {MAX_STEPS - 1}")
     shapes = {"x0": (8, B), "uinit": (2, N, B), "rx": (W, B), "ry": (W, B),
               "ryaw": (W, B), "ox": (M, N + 1, B), "oy": (M, N + 1, B),
-              "oyaw": (M, N + 1, B), "mu": (8 + 2 * M, N, B), "rho": (B,)}
+              "oyaw": (M, N + 1, B), "mu": (8 + 2 * M, N, B), "rho": (B,), "stats": (6, B)}
     for name, shape in shapes.items():
         t = getattr(p, name)
-        if t is None and name in ("mu", "rho"):
+        if t is None and name in ("mu", "rho", "stats"):
             continue
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != device
                 or not t.is_contiguous()):
@@ -296,13 +327,18 @@ def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     if len(p.row_limits) != N + 1 or not all(0 < r <= W for r in p.row_limits):
         raise ValueError(f"row_limits must be N+1 values in [1, {W}]")
+    if p.it0 < 0 or (p.stats is None and p.it0 != 0):
+        raise ValueError(f"it0={p.it0}: a solve starts at 0 unless it resumes from stats")
 
 
-def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem) -> PackedSolution:
-    """Launch the CUDA kernel on packed CUDA tensors; returns the solution
-    packed like ``cilqr_solve_ref``'s. Raises on anything the kernel lacks."""
+def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
+                       max_iter: Optional[int] = None) -> PackedSolution:
+    """Launch the CUDA kernel on packed CUDA tensors for iterations
+    [p.it0, max_iter) (``cfg.max_iter`` when None), through its resume
+    entry when ``p.stats`` is given; returns the solution packed like
+    ``cilqr_solve_ref``'s. Raises on anything the kernel lacks."""
     dtype, dev = p.x0.dtype, p.x0.device
-    name = variant(cfg, dtype)
+    name = variant(cfg, dtype) + ("" if p.stats is None else "_resume")
     _, gravity, alm = instantiation(cfg, dtype)
     if dev.type != "cuda":
         raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {dev}")
@@ -332,19 +368,80 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem) -> P
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(wts), ctypes.addressof(lims),
                  *(ptr(t) for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw, p.ox, p.oy, p.oyaw,
-                                    mu_in, rho_in, u, x, stats, mu, rho)),
-                 B, N, M, W, cfg.max_iter, len(alpha_schedule(cfg.min_alpha)),
-                 int(gravity), int(alm), stream)
+                                    mu_in, rho_in, p.stats, u, x, stats, mu, rho)),
+                 B, N, M, W, cfg.max_iter if max_iter is None else max_iter, p.it0,
+                 len(alpha_schedule(cfg.min_alpha)), int(gravity), int(alm), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launches[name] += 1
     return PackedSolution(u, x, stats, mu, rho)
 
 
+def straggler_schedule(straggler_cap, max_iter: int) -> tuple:
+    """The iteration bound of each phase of a compacted solve: the caps
+    (an int, or a strictly increasing tuple) that lie in (0, max_iter),
+    then max_iter. 0 or () is one phase (ilqr_tpu/ops/pallas/
+    cilqr_kernel.py:1596-1622)."""
+    if isinstance(straggler_cap, (tuple, list)):
+        caps = tuple(straggler_cap)
+    else:
+        caps = (straggler_cap,) if straggler_cap else ()
+    caps = tuple(c for c in caps if 0 < c < max_iter)
+    if any(a >= b for a, b in zip(caps, caps[1:])):
+        raise ValueError(f"straggler_cap phases must be strictly increasing: {straggler_cap}")
+    return caps + (max_iter,)
+
+
+def stragglers(out: PackedSolution) -> torch.Tensor:
+    """Indices, in order, of the rows of ``out`` that are neither converged
+    nor overflowed: those a later phase resumes. Syncs with the device."""
+    return ((out.stats[2] < 0.5) & (out.stats[3] < 0.5)).nonzero()[:, 0]
+
+
+def resume_problem(p: PackedProblem, out: PackedSolution, rows: torch.Tensor,
+                   it0: int) -> PackedProblem:
+    """Rows ``rows`` of ``p`` as a dense problem that resumes at iteration
+    ``it0`` from ``out``, the solution of the phase that stopped there:
+    its controls, stats and (ALM) duals."""
+    def take(t):
+        return None if t is None else t.index_select(-1, rows)
+
+    return dataclasses.replace(
+        p, x0=take(p.x0), uinit=take(out.u), rx=take(p.rx), ry=take(p.ry), ryaw=take(p.ryaw),
+        ox=take(p.ox), oy=take(p.oy), oyaw=take(p.oyaw), mu=take(out.mu), rho=take(out.rho),
+        stats=take(out.stats), it0=it0)
+
+
+def solve_packed(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem, straggler_cap=0,
+                 work: Optional[dict] = None) -> PackedSolution:
+    """Solve a packed batch: the kernel on CUDA tensors (one launch per
+    phase), the plain version on CPU tensors (``work`` as in
+    ``cilqr_solve_ref``), with straggler compaction when ``straggler_cap``
+    sets phases (``straggler_schedule``). Each later phase resumes only the
+    rows the phase before left running and is skipped when there are none;
+    the result equals a one-phase solve bit for bit."""
+    if p.x0.device.type == "cuda":
+        solve = cilqr_solve_kernel
+    elif p.x0.device.type == "cpu":
+        solve = functools.partial(cilqr_solve_ref, work=work)
+    else:
+        raise ValueError(f"unsupported device {p.x0.device}")
+    schedule = straggler_schedule(straggler_cap, cfg.max_iter)
+    out = solve(cfg, w, p, max_iter=schedule[0])
+    for it0, cap in zip(schedule, schedule[1:]):
+        rows = stragglers(out)
+        if rows.numel() == 0:
+            break  # no row resumes, now or in a later phase
+        part = solve(cfg, w, resume_problem(p, out, rows, it0), max_iter=cap)
+        out = PackedSolution(*(None if full is None else full.index_copy(-1, rows, sub)
+                               for full, sub in zip(out, part)))
+    return out
+
+
 def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenario,
                      window: int = 512, u_init=None, proj_rows_per_step: int = 0,
                      w_back: int = W_BACK, alm_mu0=None, alm_rho0=None,
-                     return_alm: bool = False):
+                     return_alm: bool = False, straggler_cap=0):
     """Batched CILQR solve through the fused kernel.
 
     x0_b (B, 4); scenario_b: batched ``Scenario``; u_init (B, N, 2) warm-start
@@ -357,21 +454,22 @@ def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenar
     state; None is the reference's cold reset, zero mu and rho_init
     (src/cilqr_solver.cpp:88-93). When to carry the previous solve's duals
     is the caller's policy, as in ``ilqr_tpu``'s ``cilqr_solve_pallas``.
+
+    ``straggler_cap``: straggler compaction, as ``cilqr_solve_pallas``
+    takes it -- an int or a strictly increasing tuple of iteration caps;
+    caps outside (0, max_iter) are dropped, and 0 (the default) solves in
+    one launch. Results are bitwise those of one launch
+    (``solve_packed``).
     """
     if return_alm and cfg.solve_type != "alm":
         raise ValueError("return_alm needs solve_type='alm'")
     p = pack_problem(cfg, x0_b, scenario_b, window, u_init, w_back, proj_rows_per_step,
                      alm_mu0, alm_rho0)
-    if x0_b.device.type == "cuda":
-        out = cilqr_solve_kernel(cfg, w, p)
-    elif x0_b.device.type == "cpu":
-        out = cilqr_solve_ref(cfg, w, p)
-    else:
-        raise ValueError(f"unsupported device {x0_b.device}")
+    out = solve_packed(cfg, w, p, straggler_cap)
     stats = out.stats
     result = (out.u.permute(2, 1, 0), out.x.permute(2, 1, 0), SolveStats(
-        iters=stats[0].to(torch.int32),
-        status=stats[1].to(torch.int32),
+        iters=stats[0].round().to(torch.int32),
+        status=stats[1].round().to(torch.int32),
         converged=stats[2] > 0.5,
         lamb_overflow=stats[3] > 0.5,
         final_cost=stats[4],

@@ -9,7 +9,8 @@ state (``new_x.row(1)``, :197) as the next ego state.
   the parity tests and the demo app.
 - :func:`run_mpc_kernel` -- a batch of episodes, host loop over
   :func:`~ilqr_tpu_torch.ops.cuda.cilqr_kernel.cilqr_solve_cuda`: one
-  kernel launch per tick on CUDA tensors, the plain version on CPU tensors.
+  kernel launch per tick (one per compaction phase with a straggler
+  schedule) on CUDA tensors, the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -66,8 +67,13 @@ def run_mpc(cfg: CILQRConfig, w: CILQRWeights, setup, ticks: Optional[int] = Non
 def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo_b,
                    obs_full_b, road_borders_b, ticks: int, window: int = 512,
                    proj_rows_per_step: int = 0, w_back: int = W_BACK,
-                   return_alm: bool = False):
+                   return_alm: bool = False, straggler_cap=0, straggler_cap_warm=None):
     """Batched receding-horizon episodes on the fused solve.
+
+    Stands for the JAX package's fused-kernel episode functions,
+    ``ilqr_tpu.sim.mpc.run_mpc_kernel_scan`` and ``run_mpc_kernel_chunked``,
+    tick for tick; their ``lax.scan`` unroll and 10-tick chunks exist for
+    TPU compiler reasons and have no counterpart here.
 
     x0_b (B, 4); ref_line_b (B, P, 4); ref_velo_b (B,); obs_full_b
     (B, M, T, 3) with T >= ticks + N + 1; road_borders_b (B, 2). The
@@ -77,6 +83,11 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo
     ``use_last_solution``, like the reference's members (:88-102) and
     ``ilqr_tpu.sim.mpc.run_mpc_kernel``; otherwise every tick starts from
     the cold reset.
+
+    ``straggler_cap`` is the straggler schedule of the first tick
+    (``cilqr_solve_cuda``); ``straggler_cap_warm``, when given, that of
+    every later tick (ilqr_tpu/sim/mpc.py:197-202, :266-272). Compaction
+    changes no result, only how the ticks' solves are launched.
 
     Returns (ego (ticks+1, B, 4), u_hist (ticks, B, N, 2), SolveStats with a
     leading ticks axis), plus the last tick's duals (alm_mu (B, N, C0),
@@ -96,8 +107,9 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo
         u_init = None
         if cfg.use_last_solution and u_prev is not None:
             u_init = torch.cat([u_prev[:, 1:], u_prev[:, -1:]], dim=1)
+        cap = straggler_cap if t == 0 or straggler_cap_warm is None else straggler_cap_warm
         kw = dict(window=window, u_init=u_init, proj_rows_per_step=proj_rows_per_step,
-                  w_back=w_back)
+                  w_back=w_back, straggler_cap=cap)
         if alm:
             mu0, rho0 = duals if cfg.use_last_solution else (None, None)
             u, x, st, duals = cilqr_solve_cuda(cfg, w, ego, scenario, alm_mu0=mu0,

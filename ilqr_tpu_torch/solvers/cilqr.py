@@ -51,6 +51,7 @@ __all__ = [
     "CILQRWeights",
     "CILQRCarry",
     "CILQRSolver",
+    "ResumeState",
     "SolveStatus",
     "solve",
     "solve_from_controls",
@@ -113,8 +114,21 @@ def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
     return _LineSearchResult(acc, conv, small, best_u, best_x)
 
 
+class ResumeState(NamedTuple):
+    """Where a solve stopped, to restart it there (straggler compaction):
+    the next iteration ``it0`` and each row's iterations, status and
+    lambda so far. The rows are neither converged nor overflowed; their
+    controls and ALM duals come in as ``u0`` and ``alm_mu0``/``alm_rho0``."""
+
+    it0: int
+    iters: torch.Tensor  # (B,) int32
+    status: torch.Tensor  # (B,) int32
+    lamb: torch.Tensor  # (B,)
+
+
 def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Scenario,
-                        alm_rho0=None, alm_mu0=None, row_limits=None, work=None):
+                        alm_rho0=None, alm_mu0=None, row_limits=None, work=None,
+                        max_iter: Optional[int] = None, resume: Optional[ResumeState] = None):
     """The solve loop from initial controls u0 (B, N, 2).
 
     Returns (u (B,N,2), x (B,N+1,4), SolveStats, alm_rho (B,), alm_mu (B,N,C)).
@@ -123,6 +137,12 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     each row needed, summed over rows: ``trials`` (line-search trials
     evaluated) and ``dual_updates`` (ALM dual steps); the iterations are
     in the returned stats.
+
+    The loop runs iterations [0, max_iter) (``cfg.max_iter`` when None),
+    or [resume.it0, max_iter) from a ``resume`` state: u0 is then the
+    controls the stopped solve had, and their rollout is the trajectory it
+    had, bit for bit (``rollout`` and the line search's trial propagate the
+    same values), so a capped solve resumed here equals one uncapped solve.
     """
     if work is not None:
         work.setdefault("trials", 0)
@@ -133,12 +153,20 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     dev = x0.device
     alm = cfg.solve_type == "alm"
     rho = w.alm_rho_init.expand(Bn).clone() if alm_rho0 is None else alm_rho0
-    mu = x0.new_zeros((Bn, cfg.N, cfg.num_constraints)) if alm_mu0 is None else alm_mu0
-    u = u0
+    # contiguous from the start, as every later iterate is: the horizon sums
+    # of the cost run in another order over a strided view, so a solve
+    # resumed from packed (permuted) inputs would part from the uncapped one
+    mu = (x0.new_zeros((Bn, cfg.N, cfg.num_constraints)) if alm_mu0 is None
+          else alm_mu0.contiguous())
+    u = u0.contiguous()
     x = rollout(x0, u0, w.dt, w.wheelbase, cfg.reference_point)
-    lamb = w.init_lamb.expand(Bn).clone()
-    status = torch.zeros(Bn, dtype=torch.int32, device=dev)
-    itr = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    if resume is None:
+        it0 = 0
+        lamb = w.init_lamb.expand(Bn).clone()
+        status = torch.zeros(Bn, dtype=torch.int32, device=dev)
+        itr = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    else:
+        it0, itr, status, lamb = resume.it0, resume.iters, resume.status, resume.lamb
     done = torch.zeros(Bn, dtype=torch.bool, device=dev)
     converged = torch.zeros_like(done)
     overflow = torch.zeros_like(done)
@@ -146,7 +174,7 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     def code(s):
         return torch.tensor(s, dtype=torch.int32, device=dev)
 
-    for _ in range(cfg.max_iter):
+    for _ in range(it0, cfg.max_iter if max_iter is None else max_iter):
         active = ~done
         if not bool(active.any()):
             break

@@ -62,3 +62,72 @@ def test_float32_instantiation_runs(cuda_device, case):
     assert bool(torch.isfinite(k.u).all() and torch.isfinite(k.x).all())
     r = ck.cilqr_solve_ref(cfg, w, p)
     assert float(((k.stats[1] == r.stats[1]).float()).mean()) >= 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_compaction_bitwise(cuda_device, case, dtype):
+    """Straggler compaction at caps (2, 5) equals one launch bit for bit, in
+    every instantiation; the later phases go through the resume entry."""
+    B = 200
+    cfg, w, p = _packed(case, dtype, cuda_device, B)
+    one = ck.cilqr_solve_kernel(cfg, w, p)
+    resume = ck.variant(cfg, dtype) + "_resume"
+    before = ck.launches[resume]
+    comp = ck.solve_packed(cfg, w, p, (2, 5))
+    torch.cuda.synchronize()
+    assert 1 <= ck.launches[resume] - before <= 2
+    for a, b in zip(one, comp):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_resume_matches_plain_f64(cuda_device, case):
+    """The double resume entry against the resumed plain version, from the
+    same stopped state (the kernel's own solve capped at 5 iterations):
+    iterations and statuses equal on >= 99% of the resumed rows, u, x and
+    the duals within 1e-6 on those rows."""
+    cfg, w, p = _packed(case, torch.float64, cuda_device, 200)
+    first = ck.cilqr_solve_kernel(cfg, w, p, max_iter=5)
+    rows = ck.stragglers(first)
+    assert rows.numel() > 0
+    sub = ck.resume_problem(p, first, rows, 5)
+    k = ck.cilqr_solve_kernel(cfg, w, sub)
+    r = ck.cilqr_solve_ref(cfg, w, sub)
+    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
+    assert int(same.sum()) >= 0.99 * rows.numel()
+    assert float((k.u - r.u).abs()[:, :, same].max()) <= 1e-6
+    assert float((k.x - r.x).abs()[:, :, same].max()) <= 1e-6
+    if cfg.solve_type == "alm":
+        assert float((k.mu - r.mu).abs()[:, :, same].max()) <= 1e-6
+        assert float((k.rho - r.rho).abs()[same].max()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repro", ["resume_echo", "dataflow", "carry", "zerotrip"])
+def test_debug_repro_kernels_bitwise(cuda_device, repro):
+    """The ``tools/debug`` repro kernels equal their plain versions bit for
+    bit on the repros' inputs, one launch each."""
+    from ilqr_tpu_torch.ops.cuda import debug_repros as dr
+
+    ins = dr.repro_inputs(cuda_device)
+    before = sum(dr.launches.values())
+    if repro == "resume_echo":
+        got, want = (dr.resume_echo(*ins["resume"]),), (dr.resume_echo_ref(*ins["resume"]),)
+    elif repro == "dataflow":
+        x, done = ins["dataflow"]
+        got = dr.dataflow(x, done)
+        u, s = dr.dataflow_k1_ref(x)
+        perm = torch.argsort(done, stable=True)
+        out = dr.dataflow_k2_ref(u[:, perm], s[:, perm])[:, torch.argsort(perm)]
+        want = (out, u, s)
+    else:
+        x0, res = ins["carry"]
+        got = (getattr(dr, repro)(x0, res),)
+        want = (dr.carry_ref(x0, res, 2 if repro == "carry" else 0),)
+    torch.cuda.synchronize()
+    assert sum(dr.launches.values()) - before == (2 if repro == "dataflow" else 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
