@@ -2,21 +2,24 @@
 """Smoke test of the PyTorch/CUDA port (``ilqr_tpu_torch``) on one GPU.
 
 Builds the fused CILQR kernel (every instantiation: float32/float64 x rear/
-gravity center x barrier/ALM, each with its resume entry) and the
+gravity center x barrier/ALM, each with its resume entry; the projection
+modes and the line search's chunk width are runtime arguments) and the
 ``tools/debug`` repro kernels from this checkout's sources, one nvcc per
 source, started together; holds every kernel against its plain PyTorch
 version, and drives the port's paths through it with ``run_mpc_kernel``,
-float32, batch 8192 perturbed starts (seed 0), each path once without and
-once with straggler compaction (``SCHEDULES``; the two must be bitwise
-equal):
+float32, batch 8192 perturbed starts (seed 0), in the modes the card
+resolves (``ck.resolve_modes``: the dot-form projection and chunks of 4
+alphas, as the JAX package ran its main path on its chip):
 
 - the main path: 120-tick episodes of ``configs/scenario_two_straight.yaml``
-  (rear center, barrier) with the shifted-u warm start; with the JAX
-  bench's schedule (8, 16, 32) on the first tick and (6, 12, 24) on warm
-  ticks (bench.py:86, :95);
+  (rear center, barrier) with the shifted-u warm start; in four mode
+  configurations (phase 6), once with the JAX bench's straggler schedule
+  (8, 16, 32) on the first tick and (6, 12, 24) on warm ticks (bench.py:86,
+  :95), bitwise equal to the run without, and once with the pair-fold
+  projection on (``proj_fold``, the JAX package's ``ILQR_PROJ_FOLD=1``);
 - path (a): episodes of ``configs/scenario_three_bend.yaml`` (gravity
-  center, barrier, cold ticks as the yaml sets it), schedule (8, 16, 32) on
-  every tick. Cut from 150 to 12 ticks;
+  center, barrier, cold ticks as the yaml sets it), once without and once
+  with the schedule (8, 16, 32) on every tick. Cut from 150 to 12 ticks;
 - path (b): 150-tick ALM episodes of ``configs/scenario_two_borrow.yaml``
   (gravity center, rho_init 20) with the warm start and the duals carried
   across ticks (they stay at the cold reset there: no line search
@@ -34,67 +37,89 @@ non-zero and prints no final line:
 0. environment: torch / CUDA versions, the card's name and power limit,
    nvcc and triton presence, the kernels' build time and each
    instantiation's registers, stack and spills from ptxas;
-1. float64 semantics: each double instantiation against
-   ``cilqr_solve_ref`` in double on the card, cold solve, batch 256 --
-   iters and status equal on >= 99% of rows, u, x (and the duals) within
-   1e-6 on those rows: rear/barrier (two_straight), gravity/barrier
-   (two_borrow), rear/ALM (two_straight), gravity/ALM (two_borrow), and
-   gravity/ALM with moving duals (three_bend, its rho_init 20 and max_mu
-   100 with gamma 0.3 and max_rho 40: line searches exhaust, mu moves and
-   rho grows on most rows). Compaction at (8, 16, 32) and at (2, 5)
-   bitwise equal to one launch, and the resume entry against the resumed
-   plain version (the kernel's solve capped at 2 iterations, resumed to
-   5) with the same gate;
+1. float64 semantics, batch 256, cold: each double instantiation against
+   ``cilqr_solve_ref`` in double on the card, in the same modes -- iters
+   and status equal on >= 99% of rows, u, x (and the duals) within 1e-6
+   on those rows: rear/barrier (two_straight), gravity/barrier
+   (two_borrow), rear/ALM (two_straight), gravity/ALM (two_borrow), each
+   with the squared distance and the serial line search, and with the dot
+   form, the fold and both (chunks of 4); gravity/ALM with moving duals
+   (three_bend, its rho_init 20 and max_mu 100 with gamma 0.3 and max_rho
+   40: line searches exhaust, mu moves and rho grows on most rows) with the
+   squared distance. In every case chunks of 3, 4 and 8 bitwise equal to
+   the serial kernel (dot form on), compaction at (8, 16, 32) and at
+   (2, 5) in the card's modes, and at (2, 5) with the fold (alone, and
+   with the dot form and chunks of 4), bitwise equal to one launch, and the resume
+   entry in those modes against the resumed plain version (the kernel's
+   solve capped at 2 iterations, resumed to 5) with the same gate;
 2. float32 against the float64 truth (``tools/f64_anchors.json``), batch
    1024, all four scenarios through ``ilqr_tpu_torch.apps.validate_kernel``
    (the gate of ``tools/validate_kernel_tpu.py``): convergence fraction and
    per-row status agreement with the float64 anchor at least as good as
    the plain float32 version's, solution agreement on rows converged in
    both (cost p90 < 1e-3, position p90 < 5e-2 m), two kernel runs bitwise
-   equal;
+   equal; with the dot form (the card's default) and without;
 2b. the same comparison with the plain version at each path's shape
-   (batch 8192, first tick, cold), in ALM mode with the final duals too
-   (rho equal on >= 99% of the rows of equal iterations and statuses, and
-   the p90 over those rows of each row's largest mu difference < 1e-2):
-   the float32 kernels' times; on the paths with a schedule, the resume
-   entry's time at the shape of the second phase (the kernel's solve
-   capped at 8 iterations, its stragglers resumed to 16) against the
+   (batch 8192, first tick, cold, the card's modes), in ALM mode with the
+   final duals too (rho equal on >= 99% of the rows of equal iterations
+   and statuses, and the p90 over those rows of each row's largest mu
+   difference < 1e-2): the float32 kernels' times; on the main path's
+   shape also the squared distance and the serial line search (the
+   configurations of phase 6; each serial kernel against the serial plain
+   version, and bitwise equal to its chunked kernel) and the fold; on the
+   paths with a schedule,
+   the resume entry's time at the shape of the second phase (the kernel's
+   solve capped at 8 iterations, its stragglers resumed to 16) against the
    resumed plain version;
-2c. compaction (8, 16, 32) bitwise equal to one launch for every float32
-   instantiation (the phase 1 cases), batch 8192, first tick cold;
+2c. for every float32 instantiation (the phase 1 cases), batch 8192, first
+   tick cold: chunks of 4 bitwise equal to the serial kernel (dot form
+   on), and compaction (8, 16, 32) in the card's modes bitwise equal to one
+   launch;
 3. the main path: one kernel launch per tick, finite outputs, and the
    float64-confirmed car-following equilibrium (mean final ego x 52.70 m,
-   within 0.05 m); with the schedule, one first-phase launch per tick, at
-   most 3 resume launches per tick, and every tick's ego, u and stats
-   bitwise equal to the run without;
+   within 0.05 m) in every configuration of phase 6 and with the fold; with
+   the schedule, one first-phase launch per tick, at most 3 resume
+   launches per tick, and every tick's ego, u and stats bitwise equal to
+   the run without;
 4. paths (a), (b) and (b2): one launch per tick, finite outputs and
    duals, and on (b2) duals that moved; (a) and (b2) with the schedule as
    the main path, duals included;
 5. float64 episodes, batch 128, 3 ticks (cut from 256 and 5), the first
-   cold, ``run_mpc_kernel`` with the schedule (2, 5) on every tick (so
-   every double resume entry runs) against the same episodes written out
-   over the plain version without compaction on the card: per-tick
-   iterations and statuses equal on >= 99% of rows, trajectories and
-   final duals within 1e-6 on them -- each
-   double instantiation, the ALM ones with the duals carried across ticks
-   (also the phase 1 three_bend case, whose duals move);
-6. compaction off / on / on / off on the main path and path (a): per-tick
-   kernel ms (CUDA events around each launch, a tick's launches summed),
-   episode wall time, the straggler rows each later phase resumed (mean
-   and max per tick), and a fifth run with compaction on under
-   ``torch.profiler``: the device's busy time and idle share;
+   cold, ``run_mpc_kernel`` in the card's modes with the schedule (2, 5) on
+   every tick (so every double resume entry runs) against the same
+   episodes written out over the plain version without compaction on the
+   card: per-tick iterations and statuses equal on >= 99% of rows,
+   trajectories and final duals within 1e-6 on them -- each double
+   instantiation, the ALM ones with the duals carried across ticks (also
+   the phase 1 three_bend case, whose duals move);
+6. the main path under four configurations -- squared distance / serial,
+   dot form / serial, squared distance / chunks of 4, dot form / chunks of
+   4 -- in the order ABCD DCBA: episode wall time and per-tick kernel ms
+   (CUDA events around each launch; sum, p50, p90, max); the chunked runs
+   bitwise equal to the serial ones of the same projection; then the card's
+   default configuration once more under ``torch.profiler``: the device's
+   busy time and idle share;
 7. the ``tools/debug`` repro kernels: each flow once with the counts at 0,
    then each kernel bitwise equal to its plain version and to the repro's
    closed form, with its time, the plain version's and the library call's.
 
+Cut to stay under eight minutes: the off/on/on/off compaction timing of the
+main path and path (a) is gone, so path (a) runs twice instead of
+five times and the main path's compaction runs once; phase 6 times the
+modes instead. Phase 1 runs the dot form and the fold against the plain
+version on the four instantiations and not on the moving-dual case, which
+shares gravity/ALM's instantiation (its dot form is held to the plain
+version by the phase 5 episodes).
+
 The last three lines are the card's name and power limit, a JSON object
-describing each kernel that ran on the paths (the solve's instantiations,
-their resume entries, the repro kernels), and
-``{"ok": true, "device": {...}}``.
+describing each kernel that ran on the paths (by instantiation and modes:
+a ``_dot``, ``_fold`` or ``_ls`` suffix per mode on; the resume entries;
+the repro kernels), and ``{"ok": true, "device": {...}}``.
 """
 
 import collections
 import concurrent.futures
+import dataclasses
 import importlib.util
 import json
 import re
@@ -106,8 +131,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 KERNEL_SOURCE = "ilqr_tpu_torch/csrc/cilqr_kernel.cu"
-REPLACES = "ilqr_tpu/ops/pallas/cilqr_kernel.py:166"
-RESUME_REPLACES = "ilqr_tpu/ops/pallas/cilqr_kernel.py:1156"  # the resume entry; host :1596
+_PALLAS = "ilqr_tpu/ops/pallas/cilqr_kernel.py"
+# what each kernel of the line replaces: the TPU kernel, its resume entry
+# (host :1596), and the modes this port added, by the mode that marks it
+REPLACES = {"base": f"{_PALLAS}:166", "resume": f"{_PALLAS}:1156", "fold": f"{_PALLAS}:368",
+            "ls": f"{_PALLAS}:844", "dot": f"{_PALLAS}:267"}
 REPRO_SOURCE = "ilqr_tpu_torch/csrc/debug_repros.cu"
 BATCH = 8192
 TICKS = 120
@@ -125,7 +153,7 @@ DUALS_MOVE = dict(alm_gamma=0.3, max_rho=40.0)
 # float32 paths: name -> (scenario, config and weight overrides, ticks)
 PATHS = {
     "main": ("scenario_two_straight", {"use_last_solution": True}, TICKS),
-    # 150 ticks cut to 12 (0.4-0.6 s a tick, run five times; batch and N as shipped)
+    # 150 ticks cut to 12 (0.4-0.6 s a tick; batch and N as shipped)
     "a_three_bend": ("scenario_three_bend", {}, 12),
     "b_alm_two_borrow": ("scenario_two_borrow", {"solve_type": "alm",
                                                  "use_last_solution": True}, 150),
@@ -141,7 +169,6 @@ COLD_CAPS, WARM_CAPS = (8, 16, 32), (6, 12, 24)
 BENCH_SCHEDULE = dict(straggler_cap=COLD_CAPS, straggler_cap_warm=WARM_CAPS)
 SCHEDULES = {"main": BENCH_SCHEDULE, "a_three_bend": dict(straggler_cap=COLD_CAPS),
              "b2_alm_duals_move": BENCH_SCHEDULE}
-TIMED_PATHS = ("main", "a_three_bend")  # phase 6: off / on / on / off, then profiled
 # float64: caps low enough that every case has rows to resume
 F64_CAPS = (2, 5)
 # phase 5: float64 episodes (scenario, config overrides), warm, duals carried
@@ -160,14 +187,18 @@ EPISODES_F64 = {
 EPISODE_F64_BATCH = 128
 EPISODE_F64_TICKS = 3
 EPISODE_F64_SCHEDULE = dict(straggler_cap=F64_CAPS)
+# the chunk widths held bitwise to the serial line search
+CHUNK_WIDTHS = (3, 4, 8)
 
 # Operations per unit of the kernel's work, counted from csrc/cilqr_kernel.cu:
-# each add, multiply, divide, compare and transcendental is one operation,
-# and a branch counts its cheaper side. Per horizon step unless noted.
+# each add, multiply, divide, compare and transcendental is one operation
+# (an FMA is two), and a branch counts its cheaper side. Per horizon step
+# unless noted. The fold takes as many compares as the first minimum.
 OPS = dict(
     prop_rear=15, prop_gravity=29,    # propagate
     feedback=24,                      # forward: u + K (x' - x) + alpha d
-    row=6,                            # one window row of a projection scan
+    row=6,                            # one window row of a projection scan, squared distance
+    row_dot=5,                        # one window row, dot form: 2 products, 2 sums, a compare
     cost_track=15,                    # total_cost: tracking, steps 0..N
     cost_ctrl=30,                     # control cost and 4 penalties, 0..N-1
     cost_state=41,                    # velocity/border penalties, lateral, discs, 1..N
@@ -227,16 +258,31 @@ def repro_kernel_name(line):
     return None if m is None else m[1]
 
 
+def compiled_name(name):
+    """The instantiation (ptxas entry) a kernel name of the line runs."""
+    return re.sub(r"_(dot|fold|ls|resume)", "", name)
+
+
+def replaces(name):
+    """What a kernel of the line replaces, by the mode that marks it."""
+    for key in ("resume", "fold", "ls", "dot"):
+        if f"_{key}" in name:
+            return REPLACES[key]
+    return REPLACES["base"]
+
+
 def bound(cfg, dtype, shape, work):
     """(bound_ms, bound_by): the least time the card could take for the
     work these inputs needed -- each input read and each output written
     once over the memory rate, against the operations (``OPS``) of this
-    run's iterations, line-search trials and dual updates over the peak
+    run's iterations, line-search rollouts (a chunk's wasted ones
+    included), trials projected and costed, and dual updates over the peak
     rate of the type."""
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
     B, N, M, W = shape["B"], shape["N"], shape["M"], shape["W"]
-    dt, gravity, alm = ck.instantiation(cfg, dtype)
+    modes = shape["modes"]
+    dt, gravity, alm = ck.instantiation(cfg, dtype, modes)
     size = 4 if dt == "f32" else 8
     C = 8 + 2 * M
     o = OPS
@@ -245,12 +291,14 @@ def bound(cfg, dtype, shape, work):
     deriv = (N + 1) * o["deriv_base"] + N * (o["deriv_ctrl"] + o["deriv_state"]
                                              + M * o["deriv_obs"])
     riccati = o["riccati_gravity"] if gravity else o["riccati_rear"]
-    proj = o["row"] * sum(shape["row_limits"])
+    proj = (o["row_dot"] if modes.proj_dot else o["row"]) * sum(shape["row_limits"])
     init = N * prop + proj + cost
-    trial = N * (o["feedback"] + prop) + proj + cost
-    ops = (B * init + work["iters"] * (deriv + N * riccati) + work["trials"] * trial
+    ops = (B * init + work["iters"] * (deriv + N * riccati)
+           + work["trials"] * N * (o["feedback"] + prop) + work["evals"] * (proj + cost)
            + work["dual_updates"] * (2 * cost + C * N * o["dual_col"]))
     elems = (8 + 2 * N + 3 * W + 3 * M * (N + 1)) + (2 * N + 4 * (N + 1) + 6)
+    if modes.proj_dot:
+        elems += 3 * W  # the dot form's window terms
     if alm:
         elems += 2 * (C * N + 1)
     t_ops = ops / PEAK_OPS[dt] * 1e3
@@ -260,7 +308,7 @@ def bound(cfg, dtype, shape, work):
 
 def shape_of(cfg, p):
     return dict(B=p.x0.shape[1], N=cfg.N, M=p.ox.shape[0], W=p.rx.shape[0],
-                row_limits=list(p.row_limits))
+                row_limits=list(p.row_limits), modes=p.modes)
 
 
 def phase_env():
@@ -299,6 +347,47 @@ def fields_of(sol):
     return [t for t in sol if t is not None]
 
 
+def bitwise(a, b):
+    """Two ``PackedSolution``s equal bit for bit."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(fields_of(a), fields_of(b)))
+
+
+def with_modes(p, proj_dot=False, ls_chunk=0, proj_fold=False):
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    return dataclasses.replace(p, modes=ck.Modes(proj_dot, ls_chunk, proj_fold))
+
+
+def against_plain(cfg, w, p, reps):
+    """The kernel (mean ms of ``reps`` launches after a warm-up) and the
+    plain version (host clock, synchronised) on the same packed problem:
+    (kernel solution, plain solution, record). The record's ``errs`` are
+    the largest differences on the rows of equal iterations and statuses."""
+    import torch
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    ms_k, k = vk.time_ms(lambda: ck.cilqr_solve_kernel(cfg, w, p), reps=reps)
+    work = {}
+    t0 = time.perf_counter()
+    r = ck.cilqr_solve_ref(cfg, w, p, work=work)
+    torch.cuda.synchronize()
+    ms_r = (time.perf_counter() - t0) * 1e3
+    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
+    errs = {"u": float((k.u - r.u).abs()[:, :, same].max()),
+            "x": float((k.x - r.x).abs()[:, :, same].max())}
+    if cfg.solve_type == "alm":
+        errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
+        errs["rho"] = float((k.rho - r.rho).abs()[same].max())
+    work["iters"] = int(r.stats[0].sum())
+    rec = dict(variant=ck.variant(cfg, p.x0.dtype, p.modes), cfg=cfg, dtype=p.x0.dtype,
+               err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
+               shape=shape_of(cfg, p), same=same)
+    return k, r, rec
+
+
 def compaction_bitwise(cfg, w, p, one, caps):
     """The kernel with compaction at ``caps`` against ``one``, the same
     problem's one-launch solution: (bitwise equal in every output, resume
@@ -306,13 +395,12 @@ def compaction_bitwise(cfg, w, p, one, caps):
     import torch
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
-    name = ck.variant(cfg, p.x0.dtype) + "_resume"
+    name = ck.variant(cfg, p.x0.dtype, p.modes) + "_resume"
     before = ck.launches[name]
     comp = ck.solve_packed(cfg, w, p, caps)
     torch.cuda.synchronize()
-    equal = all(torch.equal(a, b) for a, b in zip(fields_of(one), fields_of(comp)))
     resumed = [int((one.stats[0] > c).sum()) for c in ck.straggler_schedule(caps, cfg.max_iter)[:-1]]
-    return equal, ck.launches[name] - before, resumed
+    return bitwise(one, comp), ck.launches[name] - before, resumed
 
 
 def resume_measure(cfg, w, p, caps, reps):
@@ -344,78 +432,151 @@ def resume_measure(cfg, w, p, caps, reps):
         errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
         errs["rho"] = float((k.rho - r.rho).abs()[same].max())
     work["iters"] = int((r.stats[0] - caps[0]).sum())  # the iterations this phase ran
-    return dict(variant=ck.variant(cfg, dtype) + "_resume", cfg=cfg, dtype=dtype,
+    return dict(variant=ck.variant(cfg, dtype, p.modes) + "_resume", cfg=cfg, dtype=dtype,
                 err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
                 shape=shape_of(cfg, sub), rows=int(rows.numel()),
                 iters_status_equal=int(same.sum()), it0=caps[0], max_iter=caps[1])
 
 
+def f64_gate(tag, rec, rows):
+    n_same = int(rec["same"].sum())
+    check(n_same >= 0.99 * rows, f"{tag}: f64 iters/status agree on {n_same}/{rows} rows")
+    check(rec["err"] <= 1e-6, f"{tag}: f64 kernel vs plain max abs err {rec['err']:.3e} > 1e-6")
+
+
+def brief(rec):
+    """The printable fields of a kernel-against-plain record."""
+    return dict(variant=rec["variant"], iters_status_equal=int(rec["same"].sum()),
+                **{f"max_abs_err_{key}": v for key, v in rec["errs"].items()},
+                kernel_ms=rec["ms"], plain_ms=rec["plain_ms"], plain_work=rec["work"])
+
+
 def phase_semantics_f64(case, batch=256):
+    """1: one float64 case. Returns its records (kernel against plain) of
+    the kernels the paths run, and those of the modes the paths do not run."""
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
     name, over, wover = vk.CASES[case]
-    cfg, w, p = vk.packed_cold(name, batch, torch.float64, weights=wover, **over)
-    ms_k, k = vk.time_ms(lambda: ck.cilqr_solve_kernel(cfg, w, p), reps=1)
-    work = {}
-    t0 = time.perf_counter()
-    r = ck.cilqr_solve_ref(cfg, w, p, work=work)
-    torch.cuda.synchronize()
-    ms_r = (time.perf_counter() - t0) * 1e3
-    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
-    n_same = int(same.sum())
-    errs = {"u": float((k.u - r.u).abs()[:, :, same].max()),
-            "x": float((k.x - r.x).abs()[:, :, same].max())}
-    if cfg.solve_type == "alm":
-        errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
-        errs["rho"] = float((k.rho - r.rho).abs()[same].max())
-    err = max(errs.values())
-    bitwise = {caps: compaction_bitwise(cfg, w, p, k, caps) for caps in (COLD_CAPS, F64_CAPS)}
-    res = resume_measure(cfg, w, p, F64_CAPS, reps=1)
-    fields = dict(variant=ck.variant(cfg, torch.float64), scenario=name, batch=batch,
-                  iters_status_equal=n_same, rows=batch,
-                  **{f"max_abs_err_{key}": v for key, v in errs.items()}, tol=1e-6,
-                  kernel_ms=ms_k, plain_ms=ms_r, plain_work=work,
-                  mean_iters=float(r.stats[0].mean()),
-                  compaction_bitwise={str(c): b[0] for c, b in bitwise.items()},
-                  compaction_resume_launches={str(c): b[1] for c, b in bitwise.items()},
-                  compaction_rows_resumed={str(c): b[2] for c, b in bitwise.items()},
+    cfg, w, p = vk.packed_cold(name, batch, torch.float64, weights=wover, modes=ck.Modes(),
+                               **over)
+    card = ck.resolve_modes(DEVICE)
+    p_card = dataclasses.replace(p, modes=card)
+    # squared distance, serial line search
+    _, r, base = against_plain(cfg, w, p, reps=1)
+    f64_gate(case, base, batch)
+    # the modes: dot form, fold, both; chunks of 4 (bitwise the serial line
+    # search, below), which also speeds up the plain version
+    modes, records, sols = {}, [base], {}
+    if case != "gravity_alm_duals_move":
+        for tag, m in (("dot", card._replace(proj_fold=False)),
+                       ("fold", card._replace(proj_dot=False, proj_fold=True)),
+                       ("dot_fold", card._replace(proj_fold=True))):
+            sols[m], _, rec = against_plain(cfg, w, dataclasses.replace(p, modes=m), reps=1)
+            f64_gate(f"{case} {tag}", rec, batch)
+            modes[tag] = brief(rec)
+            records.append(rec)
+    one = sols[card] if card in sols else ck.cilqr_solve_kernel(cfg, w, p_card)
+    # chunks bitwise equal to the serial line search, dot form on
+    serial = ck.cilqr_solve_kernel(cfg, w, with_modes(p, proj_dot=True))
+    chunks = {cw: bitwise(serial, ck.cilqr_solve_kernel(cfg, w, with_modes(p, True, cw)))
+              for cw in CHUNK_WIDTHS}
+    comp = {caps: compaction_bitwise(cfg, w, p_card, one, caps) for caps in (COLD_CAPS, F64_CAPS)}
+    # compaction with the fold on: the resume entry folds the resumed rows
+    # again, with a scratch sized and strided for the sub-batch
+    fold_comp = {}
+    for tag, m in (("fold", ck.Modes(False, 0, True)), ("dot_fold_ls", ck.Modes(True, 4, True))):
+        pm = dataclasses.replace(p, modes=m)
+        fold_one = sols[m] if m in sols else ck.cilqr_solve_kernel(cfg, w, pm)
+        fold_comp[tag] = compaction_bitwise(cfg, w, pm, fold_one, F64_CAPS)
+    res = resume_measure(cfg, w, p_card, F64_CAPS, reps=1)
+    fields = dict(**brief(base), scenario=name, batch=batch, rows=batch, tol=1e-6,
+                  mean_iters=float(r.stats[0].mean()), modes_against_plain=modes,
+                  chunk_bitwise_serial=chunks, card_modes=card._asdict(),
+                  compaction_bitwise={str(c): b[0] for c, b in comp.items()},
+                  compaction_resume_launches={str(c): b[1] for c, b in comp.items()},
+                  compaction_rows_resumed={str(c): b[2] for c, b in comp.items()},
+                  fold_compaction_bitwise={t: b[0] for t, b in fold_comp.items()},
+                  fold_compaction_resume_launches={t: b[1] for t, b in fold_comp.items()},
                   resume=None if res is None else {
-                      key: res[key] for key in ("rows", "it0", "max_iter", "iters_status_equal",
-                                                "errs", "ms", "plain_ms")})
+                      key: res[key] for key in ("variant", "rows", "it0", "max_iter",
+                                                "iters_status_equal", "errs", "ms",
+                                                "plain_ms")})
     if cfg.solve_type == "alm":
         fields.update(dual_rows_moved=int((r.mu.flatten(0, 1) > 0).any(0).sum()),
                       rho_max=float(r.rho.max()))
     say("phase1_f64" if case == "rear_barrier" else f"phase1_f64_{case}", **fields)
-    check(n_same >= 0.99 * batch, f"{case}: f64 iters/status agree on {n_same}/{batch} rows")
-    check(err <= 1e-6, f"{case}: f64 kernel vs plain max abs err {err:.3e} > 1e-6")
     if case == "gravity_alm_duals_move":
         check(fields["dual_rows_moved"] > 0 and fields["rho_max"] > 20.0,
               "the duals did not move")
-    for caps, (equal, n_resume, _) in bitwise.items():
+    check(all(chunks.values()), f"{case}: f64 chunked line search differs from serial: {chunks}")
+    for caps, (equal, n_resume, _) in comp.items():
         check(equal, f"{case}: f64 compaction {caps} differs from one launch")
         check(n_resume <= len(caps), f"{case}: {n_resume} resume launches at {caps}")
+    for tag, (equal, n_resume, resumed) in fold_comp.items():
+        check(equal, f"{case}: f64 compaction {F64_CAPS} with {tag} differs from one launch")
+        check(n_resume == sum(n > 0 for n in resumed),
+              f"{case} {tag}: {n_resume} resume launches for rows {resumed}")
     check(res is not None, f"{case}: no row left to resume after {F64_CAPS[0]} iterations")
     check(res["iters_status_equal"] >= 0.99 * res["rows"] and res["err"] <= 1e-6,
           f"{case}: f64 resume vs plain: {res['iters_status_equal']}/{res['rows']} rows equal, "
           f"max abs err {res['err']:.3e}")
-    work["iters"] = int(r.stats[0].sum())
-    return (dict(variant=fields["variant"], cfg=cfg, dtype=torch.float64, err=err, ms=ms_k,
-                 plain_ms=ms_r, work=work, shape=shape_of(cfg, p)), res)
+    return records + [res]
 
 
 def phase_f32_anchor():
     from ilqr_tpu_torch.apps import validate_kernel as vk
 
     for name in vk.SCENARIOS:
-        res = vk.validate(name)
-        failures = res.pop("failures")
-        say("phase2_f32_anchor", **res)
-        check(not failures, f"{name}: " + "; ".join(failures))
+        for proj_dot in (None, False):  # the card's default (dot form on), then off
+            res = vk.validate(name, proj_dot)
+            failures = res.pop("failures")
+            say("phase2_f32_anchor", **res)
+            check(not failures, f"{name} ({res['variant']}): " + "; ".join(failures))
+
+
+def f32_against_plain(path, tag, cfg, w, p, reps):
+    """2b: one float32 kernel against its plain version at a path's shape,
+    under the agreement gates; returns (kernel solution, record)."""
+    import torch
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+
+    k, r, rec = against_plain(cfg, w, p, reps)
+    rec["kernel_solution"] = k
+    conv_k, conv_r, cost_p90, pos_p90 = vk.agreement(k, r)
+    gap = abs(float(conv_k.mean()) - float(conv_r.mean()))
+    same = rec["same"]
+    fields = dict(variant=rec["variant"], batch=p.x0.shape[1], conv_kernel=float(conv_k.mean()),
+                  conv_plain=float(conv_r.mean()), cost_relerr_p90=cost_p90,
+                  pos_absdiff_p90=pos_p90, iters_status_equal=int(same.sum()),
+                  **{f"max_abs_err_{key}_on_equal_rows": v for key, v in rec["errs"].items()},
+                  kernel_ms=rec["ms"], plain_ms=rec["plain_ms"], plain_work=rec["work"])
+    if cfg.solve_type == "alm":
+        dmu = (k.mu - r.mu).abs()[:, :, same].flatten(0, 1).amax(0)  # each row's largest
+        fields.update(mu_absdiff_p90=float(torch.quantile(dmu.double(), 0.9)),
+                      rho_equal_frac=float((k.rho == r.rho)[same].float().mean()),
+                      dual_rows_moved=int(((r.mu.flatten(0, 1) > 0).any(0)
+                                           | (r.rho > w.alm_rho_init)).sum()),
+                      rho_max=float(r.rho.max()))
+    check(gap <= 0.03, f"{path} {tag}: conv fraction kernel vs plain differs by {gap:.4f} > 0.03")
+    check(cost_p90 < 1e-3, f"{path} {tag}: cost relerr p90 {cost_p90:.3e} >= 1e-3")
+    check(pos_p90 < 5e-2, f"{path} {tag}: position p90 {pos_p90:.3e} >= 5e-2 m")
+    if cfg.solve_type == "alm":
+        check(fields["rho_equal_frac"] >= 0.99,
+              f"{path} {tag}: rho equal on {fields['rho_equal_frac']:.4f} of equal rows < 0.99")
+        check(fields["mu_absdiff_p90"] < 1e-2,
+              f"{path} {tag}: mu abs diff p90 {fields['mu_absdiff_p90']:.3e} >= 1e-2")
+    if path in DUALS_MOVE_PATHS:
+        check(fields["dual_rows_moved"] > 0 and fields["rho_max"] > float(w.alm_rho_init),
+              f"{path}: the duals did not move")
+    return k, rec, fields
 
 
 def phase_f32_path_shape(path, batch=BATCH):
+    """2b: the path's kernel in the card's modes against the plain version
+    at the path's shape; on the main path also the squared distance and
+    the serial line search (phase 6's configurations) and the fold."""
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
@@ -423,71 +584,62 @@ def phase_f32_path_shape(path, batch=BATCH):
     name, over, _ = PATHS[path]
     over = dict(over)
     wover = over.pop("weights", None)
-    cfg, w, p = vk.packed_cold(name, batch, weights=wover, **over)
-    ms_k, k = vk.time_ms(lambda: ck.cilqr_solve_kernel(cfg, w, p), reps=3)
-    work = {}
-    t0 = time.perf_counter()
-    r = ck.cilqr_solve_ref(cfg, w, p, work=work)
-    torch.cuda.synchronize()
-    ms_r = (time.perf_counter() - t0) * 1e3
-    conv_k, conv_r, cost_p90, pos_p90 = vk.agreement(k, r)
-    gap = abs(float(conv_k.mean()) - float(conv_r.mean()))
-    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
-    errs = {"x": float((k.x - r.x).abs()[:, :, same].max())}
-    duals = {}
-    if cfg.solve_type == "alm":
-        dmu = (k.mu - r.mu).abs()[:, :, same].flatten(0, 1).amax(0)  # each row's largest
-        rho_equal = float((k.rho == r.rho)[same].float().mean())
-        errs.update(mu=float(dmu.max()), rho=float((k.rho - r.rho).abs()[same].max()))
-        duals = dict(mu_absdiff_p90=float(torch.quantile(dmu.double(), 0.9)),
-                     rho_equal_frac=rho_equal,
-                     dual_rows_moved=int(((r.mu.flatten(0, 1) > 0).any(0)
-                                          | (r.rho > w.alm_rho_init)).sum()),
-                     rho_max=float(r.rho.max()))
-    err = max(errs.values())
+    card = ck.resolve_modes(DEVICE)
+    cfg, w, p = vk.packed_cold(name, batch, weights=wover, modes=card, **over)
+    _, rec, fields = f32_against_plain(path, "card modes", cfg, w, p, reps=3)
+    records, extra = [rec], {}
+    if path == "main":
+        # the squared distance against its plain version (chunks of 4 on
+        # both sides), the fold, and the serial line search of each
+        # projection against the serial plain version, each bitwise equal to
+        # its chunked kernel
+        for tag, m in (("squared", card._replace(proj_dot=False)),
+                       ("dot_fold", card._replace(proj_fold=True))):
+            _, r2, f2 = f32_against_plain(path, tag, cfg, w, dataclasses.replace(p, modes=m), 3)
+            records.append(r2)
+            extra[tag] = f2
+            if tag == "squared":
+                sq_rec = r2
+        for chunked in (sq_rec, rec):
+            m = chunked["shape"]["modes"]._replace(ls_chunk=0)
+            tag = ck.variant(cfg, torch.float32, m)
+            k_serial, serial, f_serial = f32_against_plain(
+                path, tag, cfg, w, dataclasses.replace(p, modes=m), 3)
+            equal = bitwise(k_serial, chunked["kernel_solution"])
+            check(equal, f"main: {chunked['variant']} differs from the serial line search")
+            records.append(serial)
+            extra[tag] = dict(kernel_ms=serial["ms"], plain_ms=serial["plain_ms"],
+                              plain_work=serial["work"], bitwise_chunked=equal,
+                              cost_relerr_p90=f_serial["cost_relerr_p90"])
     res = resume_measure(cfg, w, p, COLD_CAPS, reps=3) if path in SCHEDULES else None
     resume = {} if res is None else dict(resume={
-        key: res[key] for key in ("rows", "it0", "max_iter", "iters_status_equal", "errs", "ms",
-                                  "plain_ms")})
+        key: res[key] for key in ("variant", "rows", "it0", "max_iter", "iters_status_equal",
+                                  "errs", "ms", "plain_ms")})
     say("phase2b_f32_main_shape" if path == "main" else f"phase2b_f32_{path}",
-        variant=ck.variant(cfg, torch.float32), scenario=name, batch=batch,
-        conv_kernel=float(conv_k.mean()), conv_plain=float(conv_r.mean()),
-        cost_relerr_p90=cost_p90, pos_absdiff_p90=pos_p90,
-        iters_status_equal=int(same.sum()),
-        **{f"max_abs_err_{key}_on_equal_rows": v for key, v in errs.items()}, **duals,
-        kernel_ms=ms_k, plain_ms=ms_r, plain_work=work, **resume)
-    check(gap <= 0.03, f"{path}: conv fraction kernel vs plain differs by {gap:.4f} > 0.03")
-    check(cost_p90 < 1e-3, f"{path}: cost relerr p90 {cost_p90:.3e} >= 1e-3")
-    check(pos_p90 < 5e-2, f"{path}: position p90 {pos_p90:.3e} >= 5e-2 m")
-    if duals:
-        check(duals["rho_equal_frac"] >= 0.99,
-              f"{path}: rho equal on {duals['rho_equal_frac']:.4f} of equal rows < 0.99")
-        check(duals["mu_absdiff_p90"] < 1e-2,
-              f"{path}: mu abs diff p90 {duals['mu_absdiff_p90']:.3e} >= 1e-2")
-    if path in DUALS_MOVE_PATHS:
-        check(duals["dual_rows_moved"] > 0 and duals["rho_max"] > float(w.alm_rho_init),
-              f"{path}: the duals did not move")
+        scenario=name, modes=card._asdict(), **fields, **extra, **resume)
     if path in SCHEDULES:
         check(res is not None, f"{path}: no row left to resume after {COLD_CAPS[0]} iterations")
-    work["iters"] = int(r.stats[0].sum())
-    return (dict(variant=ck.variant(cfg, torch.float32), cfg=cfg, dtype=torch.float32, err=err,
-                 ms=ms_k, plain_ms=ms_r, work=work, shape=shape_of(cfg, p)), res)
+    return records + [res]
 
 
-def phase_compaction_f32(batch=BATCH):
-    """2c: compaction at the bench's cold caps against one launch, bitwise,
-    for every float32 instantiation (the phase 1 cases)."""
-    import torch
+def phase_bitwise_f32(batch=BATCH):
+    """2c: for every float32 instantiation (the phase 1 cases), chunks of 4
+    against the serial line search (dot form on), and compaction at the
+    bench's cold caps in the card's modes against one launch, bitwise."""
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
+    card = ck.resolve_modes(DEVICE)
     for case, (name, over, wover) in vk.CASES.items():
-        cfg, w, p = vk.packed_cold(name, batch, weights=wover, **over)
+        cfg, w, p = vk.packed_cold(name, batch, weights=wover, modes=card, **over)
+        chunk_equal = bitwise(ck.cilqr_solve_kernel(cfg, w, with_modes(p, proj_dot=True)),
+                              ck.cilqr_solve_kernel(cfg, w, with_modes(p, True, 4)))
         one = ck.cilqr_solve_kernel(cfg, w, p)
         equal, n_resume, resumed = compaction_bitwise(cfg, w, p, one, COLD_CAPS)
-        say(f"phase2c_f32_compaction_{case}", variant=ck.variant(cfg, torch.float32),
-            scenario=name, batch=batch, caps=COLD_CAPS, bitwise_equal=equal,
-            resume_launches=n_resume, rows_resumed=resumed)
+        say(f"phase2c_f32_bitwise_{case}", variant=ck.variant(cfg, p.x0.dtype, p.modes),
+            scenario=name, batch=batch, chunk4_bitwise_serial=chunk_equal, caps=COLD_CAPS,
+            compaction_bitwise=equal, resume_launches=n_resume, rows_resumed=resumed)
+        check(chunk_equal, f"{case}: f32 chunks of 4 differ from the serial line search")
         check(equal, f"{case}: f32 compaction {COLD_CAPS} differs from one launch")
         check(n_resume == sum(n > 0 for n in resumed),
               f"{case}: {n_resume} resume launches for rows {resumed}")
@@ -534,10 +686,11 @@ class LaunchTimer:
         return [[t[i + 1][2] if i + 1 < len(t) else 0 for i in range(phases)] for t in self.ticks]
 
 
-def run_path(name, over, dtype, batch, ticks, schedule=None):
+def run_path(name, over, dtype, batch, ticks, schedule=None, modes=None):
     """One batch of episodes through ``run_mpc_kernel`` on the card, with the
     launch counts set to 0 just before and read just after; ``schedule``
-    holds its straggler caps. Also returns the episode's inputs."""
+    holds its straggler caps, ``modes`` (None: the card's) its modes. Also
+    returns the episode's inputs."""
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
@@ -548,15 +701,17 @@ def run_path(name, over, dtype, batch, ticks, schedule=None):
     obs = torch.as_tensor(st.obs_preds_array(), device=DEVICE).to(dtype)
     check(obs.shape[1] >= ticks + cfg.N + 1, "obstacle predictions shorter than the episode")
     obs_b = obs.expand(batch, *obs.shape)
+    modes = ck.resolve_modes(DEVICE) if modes is None else modes
     torch.cuda.synchronize()
     ck.launches.clear()
     t0 = time.perf_counter()
     out = run_mpc_kernel(cfg, w, x0, sc.ref_line, sc.ref_velo, obs_b, sc.road_borders, ticks,
                          window=384, proj_rows_per_step=rows, w_back=24,
-                         return_alm=cfg.solve_type == "alm", **(schedule or {}))
+                         return_alm=cfg.solve_type == "alm", **(schedule or {}),
+                         **modes._asdict())
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    return cfg, out, total, dict(ck.launches), (w, x0, sc, obs_b, rows)
+    return cfg, out, total, dict(ck.launches), (w, x0, sc, obs_b, rows, modes)
 
 
 def episode_tensors(out):
@@ -565,6 +720,12 @@ def episode_tensors(out):
     ego, us, st = out[:3]
     return [ego, us, st.iters, st.status, st.converged, st.lamb_overflow, st.final_cost,
             st.final_lamb] + (list(out[3]) if len(out) == 4 else [])
+
+
+def episodes_equal(a, b):
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(episode_tensors(a), episode_tensors(b)))
 
 
 def check_schedule_launches(tag, variant, launches, ticks, caps):
@@ -613,33 +774,20 @@ def stats_ms(values):
                 p90=float(np.percentile(v, 90)), max=float(v.max()))
 
 
-def phase_path(path, card, batch=BATCH):
-    """The path's episodes, once without compaction (the phase 3 / 4 gates)
-    and, with a schedule, once with (bitwise equal to the first); on the
-    timed paths off / on / on / off with per-tick kernel times and a
-    profiled fifth run (phase 6). Returns the launches of the run with
-    compaction where there is one, else of the run without."""
+def path_gates(path, card, cfg, out, total, launches, inputs, tag):
+    """The phase 3 / 4 gates of one run of a path; prints its line."""
     import torch
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
-    name, over, ticks = PATHS[path]
-    schedule = SCHEDULES.get(path)
-    modes = (("off", "on", "on", "off") if path in TIMED_PATHS
-             else ("off", "on") if schedule else ("off",))
-    runs = []
-    for mode in modes:
-        with LaunchTimer() as timer:
-            cfg, out, total, launches, inputs = run_path(
-                name, over, torch.float32, batch, ticks, schedule if mode == "on" else None)
-        runs.append(dict(mode=mode, out=out, total=total, launches=launches, timer=timer))
-    out, total, launches = runs[0]["out"], runs[0]["total"], runs[0]["launches"]
+    name, _, ticks = PATHS[path]
+    batch = out[0].shape[1]
+    modes = inputs[-1]
     ego, us, stats = out[:3]
-    variant = ck.variant(cfg, torch.float32)
+    variant = ck.variant(cfg, torch.float32, modes)
     final_x = float(ego[-1, :, 0].mean())
-    fields = dict(card=card, scenario=name, variant=variant, batch=batch, ticks=ticks,
-                  ticks_cut_from=FULL_TICKS.get(path, ticks), total_s=total,
-                  ms_per_tick=total / ticks * 1e3,
-                  solves_per_s=batch * ticks / total,
+    fields = dict(card=card, scenario=name, variant=variant, modes=modes._asdict(), batch=batch,
+                  ticks=ticks, ticks_cut_from=FULL_TICKS.get(path, ticks), total_s=total,
+                  ms_per_tick=total / ticks * 1e3, solves_per_s=batch * ticks / total,
                   mean_iters=float(stats.iters.float().mean()), final_ego_x_mean=final_x,
                   conv_frac=float(stats.converged.float().mean()), launches=launches)
     finite = bool(torch.isfinite(ego).all() and torch.isfinite(us).all())
@@ -649,53 +797,105 @@ def phase_path(path, card, batch=BATCH):
         fields.update(mu_max=float(mu.max()), rho_mean=float(rho.mean()),
                       rho_max=float(rho.max()), dual_rows_moved=int(moved.sum()))
         finite = finite and bool(torch.isfinite(mu).all() and torch.isfinite(rho).all())
-    say("phase3_main_path" if path == "main" else f"phase4_path_{path}", **fields)
+    say(("phase3_main_path" if path == "main" else f"phase4_path_{path}") + tag, **fields)
     check(launches == {variant: ticks}, f"{path}: launches {launches} in {ticks} ticks")
     check(tuple(ego.shape) == (ticks + 1, batch, 4), f"{path}: ego shape {tuple(ego.shape)}")
     check(tuple(us.shape) == (ticks, batch, cfg.N, 2), f"{path}: u shape {tuple(us.shape)}")
     check(finite, f"{path}: non-finite episode")
     if path == "main":
         check(abs(final_x - EGO_X_ANCHOR) <= EGO_X_TOL,
-              f"final_ego_x_mean {final_x:.4f} not within {EGO_X_TOL} of {EGO_X_ANCHOR}")
+              f"{variant}: final_ego_x_mean {final_x:.4f} not within {EGO_X_TOL} of "
+              f"{EGO_X_ANCHOR}")
     if path in DUALS_MOVE_PATHS:
         check(fields["dual_rows_moved"] > 0, f"{path}: the duals did not move")
-    if not schedule:
-        return launches
+    return variant
 
-    # compaction on: the same episodes, bit for bit
+
+def compaction_run(path, card, out, variant, launches_total):
+    """The path once more with its schedule: bitwise equal to ``out``, the
+    run without; adds the run's launches to ``launches_total``."""
+    import torch
+
+    name, over, ticks = PATHS[path]
+    schedule = SCHEDULES[path]
     phases = len(schedule["straggler_cap"])
-    ref = episode_tensors(out)
-    on = [r for r in runs if r["mode"] == "on"]
-    for r in on:
-        check(all(torch.equal(a, b) for a, b in zip(ref, episode_tensors(r["out"]))),
-              f"{path}: the episode with compaction differs from the one without")
-        check_schedule_launches(path, variant, r["launches"], ticks, phases)
-    resumed = on[0]["timer"].resumed_rows(phases)
+    with LaunchTimer() as timer:
+        _, on, total, launches, _ = run_path(name, over, torch.float32, BATCH, ticks, schedule)
+    launches_total.update(launches)
+    resumed = timer.resumed_rows(phases)
     first, warm = resumed[0], resumed[1:]
     say("phase3_main_path_compaction" if path == "main" else f"phase4_path_{path}_compaction",
-        scenario=name, variant=variant, schedule=schedule, bitwise_equal_runs=len(on),
-        final_ego_x_mean=float(on[0]["out"][0][-1, :, 0].mean()), total_s=on[0]["total"],
-        launches=on[0]["launches"], rows_resumed_tick0=first,
+        scenario=name, variant=variant, schedule=schedule,
+        bitwise_equal=episodes_equal(out, on), final_ego_x_mean=float(on[0][-1, :, 0].mean()),
+        total_s=total, launches=launches, rows_resumed_tick0=first,
         rows_resumed_later_mean=[float(sum(t[i] for t in warm) / max(len(warm), 1))
                                  for i in range(phases)],
         rows_resumed_later_max=[max((t[i] for t in warm), default=0) for i in range(phases)])
-    if path in TIMED_PATHS:
-        prof = profile_run(lambda: run_path(name, over, torch.float32, batch, ticks, schedule))
-        say(f"phase6_compaction_timing_{path}", card=card, scenario=name, ticks=ticks,
-            order=[r["mode"] for r in runs], episode_s=[r["total"] for r in runs],
-            kernel_ms_per_tick=[stats_ms(r["timer"].kernel_ms()) for r in runs],
-            tick0_kernel_ms=[r["timer"].kernel_ms()[0] for r in runs],
-            profiled_on=prof)
-    return on[0]["launches"]
+    check(episodes_equal(out, on), f"{path}: the episode with compaction differs from the one without")
+    check_schedule_launches(path, variant, launches, ticks, phases)
 
 
-def plain_episode(cfg, w, x0, sc, obs_b, rows, ticks):
+def phase_main(card, launches_total):
+    """3 and 6: the main path in four configurations, ABCD DCBA, each run
+    gated as phase 3 and timed; the chunked runs bitwise equal to the
+    serial ones; then the card's default with the schedule (bitwise equal),
+    with the fold, and profiled."""
+    import torch
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    name, over, ticks = PATHS["main"]
+    card_modes = ck.resolve_modes(DEVICE)
+    configs = {"A": ck.Modes(False, 0, False), "B": ck.Modes(True, 0, False),
+               "C": ck.Modes(False, 4, False), "D": ck.Modes(True, 4, False)}
+    runs = []
+    for key in "ABCDDCBA":
+        with LaunchTimer() as timer:
+            cfg, out, total, launches, inputs = run_path(name, over, torch.float32, BATCH, ticks,
+                                                         modes=configs[key])
+        launches_total.update(launches)
+        variant = path_gates("main", card, cfg, out, total, launches, inputs, f"_{key}")
+        runs.append(dict(key=key, out=out, total=total, kernel_ms=timer.kernel_ms(),
+                         variant=variant))
+    first = {r["key"]: r for r in reversed(runs)}  # the first run of each configuration
+    chunk_equal = {"C=A": episodes_equal(first["C"]["out"], first["A"]["out"]),
+                   "D=B": episodes_equal(first["D"]["out"], first["B"]["out"])}
+    default = next(k for k, m in configs.items() if m == card_modes)
+    prof = profile_run(lambda: run_path(name, over, torch.float32, BATCH, ticks))
+    say("phase6_modes_timing_main", card=card, scenario=name, ticks=ticks,
+        configs={k: m._asdict() for k, m in configs.items()}, order=[r["key"] for r in runs],
+        variants=[r["variant"] for r in runs], episode_s=[r["total"] for r in runs],
+        kernel_ms_per_tick=[stats_ms(r["kernel_ms"]) for r in runs],
+        tick0_kernel_ms=[r["kernel_ms"][0] for r in runs],
+        final_ego_x_mean=[float(r["out"][0][-1, :, 0].mean()) for r in runs],
+        chunk_bitwise_serial=chunk_equal, card_default=default, profiled_default=prof)
+    check(all(chunk_equal.values()), f"main: chunked episodes differ from serial: {chunk_equal}")
+    compaction_run("main", card, first[default]["out"], first[default]["variant"], launches_total)
+    # the fold, composed with the card's modes (ILQR_PROJ_FOLD=1 in the JAX package)
+    cfg, out, total, launches, inputs = run_path(name, over, torch.float32, BATCH, ticks,
+                                                 modes=card_modes._replace(proj_fold=True))
+    launches_total.update(launches)
+    path_gates("main", card, cfg, out, total, launches, inputs, "_fold")
+
+
+def phase_path(path, card, launches_total):
+    """4: a path in the card's modes, and with its schedule when it has one."""
+    import torch
+
+    name, over, ticks = PATHS[path]
+    cfg, out, total, launches, inputs = run_path(name, over, torch.float32, BATCH, ticks)
+    launches_total.update(launches)
+    variant = path_gates(path, card, cfg, out, total, launches, inputs, "")
+    if path in SCHEDULES:
+        compaction_run(path, card, out, variant, launches_total)
+
+
+def plain_episode(cfg, w, x0, sc, obs_b, rows, modes, ticks):
     """The same episodes through the plain version on the card, written
     out independently of ``run_mpc_kernel``: each tick solves on the
     prediction window at that tick from the shifted previous controls and,
     in ALM mode, the previous duals (both only under use_last_solution),
-    and applies the second planned state. Returns (ego, u, iters, status,
-    final (mu, rho) or None)."""
+    in ``modes``, and applies the second planned state. Returns (ego, u,
+    iters, status, final (mu, rho) or None)."""
     import torch
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
     from ilqr_tpu_torch.types import Scenario
@@ -710,7 +910,7 @@ def plain_episode(cfg, w, x0, sc, obs_b, rows, ticks):
         u_init = (torch.cat([u_prev[:, 1:], u_prev[:, -1:]], dim=1)
                   if warm and u_prev is not None else None)
         mu0, rho0 = duals if warm else (None, None)
-        p = ck.pack_problem(cfg, ego, scenario, 384, u_init, 24, rows, mu0, rho0)
+        p = ck.pack_problem(cfg, ego, scenario, 384, u_init, 24, rows, mu0, rho0, modes)
         r = ck.cilqr_solve_ref(cfg, w, p)
         u_prev = r.u.permute(2, 1, 0)
         ego = r.x[:, 1].T
@@ -735,7 +935,7 @@ def phase_episode_f64(case, batch=EPISODE_F64_BATCH, ticks=EPISODE_F64_TICKS):
     ego_r, u_r, it_r, st_r, duals_r = plain_episode(cfg, *inputs, ticks)
     torch.cuda.synchronize()
     r_s = time.perf_counter() - t0
-    variant = ck.variant(cfg, torch.float64)
+    variant = ck.variant(cfg, torch.float64, inputs[-1])
     same = ((ko[2].iters == it_r) & (ko[2].status == st_r)).all(dim=0)
     n_same = int(same.sum())
     errs = {"ego": float((ko[0] - ego_r).abs()[:, same].max()),
@@ -747,7 +947,8 @@ def phase_episode_f64(case, batch=EPISODE_F64_BATCH, ticks=EPISODE_F64_TICKS):
         extra = dict(mu_max=float(duals_r[0].max()), rho_max=float(duals_r[1].max()))
     err = max(errs.values())
     say(f"phase5_f64_episode_{case}", variant=variant, scenario=name, batch=batch,
-        ticks=ticks, schedule=EPISODE_F64_SCHEDULE, rows_iters_status_equal_every_tick=n_same,
+        ticks=ticks, schedule=EPISODE_F64_SCHEDULE, modes=inputs[-1]._asdict(),
+        rows_iters_status_equal_every_tick=n_same,
         **{f"max_abs_err_{key}": v for key, v in errs.items()}, tol=1e-6,
         kernel_s=k_s, plain_s=r_s, launches=launches, **extra)
     check_schedule_launches(case, variant, launches, ticks, len(F64_CAPS))
@@ -827,11 +1028,11 @@ def phase_debug_repros(card):
         ms, _ = vk.time_ms(kernel, reps)
         plain_ms, _ = vk.time_ms(ref, reps)
         lib_ms = vk.time_ms(lib, reps)[0] if lib else None
-        replaces, rows, ops = REPROS[name]
+        replaces_, rows, ops = REPROS[name]
         t_bytes = rows * dr.BP * 4 / PEAK_BYTES * 1e3
         t_ops = ops * dr.BP / PEAK_OPS["f32"] * 1e3
         kernels.append({
-            "name": name, "route": "cuda", "source": REPRO_SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": REPRO_SOURCE, "replaces": replaces_,
             "launches": launches[name], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "batch": dr.BP})
@@ -848,35 +1049,39 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card, ptxas = phase_env()
-    f64 = [phase_semantics_f64(case) for case in vk.CASES]
+    records = [rec for case in vk.CASES for rec in phase_semantics_f64(case)]
     phase_f32_anchor()
-    f32 = [phase_f32_path_shape(path) for path in PATHS]
-    phase_compaction_f32()
-    launches = collections.Counter()  # summed over the paths, each run counted from 0
+    records += [rec for path in PATHS for rec in phase_f32_path_shape(path)]
+    phase_bitwise_f32()
+    launches = collections.Counter()  # summed over the path runs, each counted from 0
+    phase_main(card, launches)
     for path in PATHS:
-        launches.update(phase_path(path, card))
+        if path != "main":
+            phase_path(path, card, launches)
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
     repro_kernels = phase_debug_repros(card)
-    # one entry per kernel: its time on its first case's inputs, its error
-    # the largest of its cases'
+    # one entry per kernel the paths launched: its time on its first
+    # record's inputs, its error the largest of its records'
     measured = {}
-    for res in [r for pair in f64 + f32 for r in pair if r is not None]:
-        first = measured.setdefault(res["variant"], res)
-        first["err"] = max(first["err"], res["err"])
-    check(set(measured) == set(launches), f"{sorted(measured)} vs {sorted(launches)}")
+    for rec in [r for r in records if r is not None]:
+        first = measured.setdefault(rec["variant"], dict(rec))
+        first["err"] = max(first["err"], rec["err"])
+    check(set(launches) <= set(measured),
+          f"launched but not measured: {sorted(set(launches) - set(measured))}")
     kernels = []
-    for name, res in sorted(measured.items()):
-        bound_ms, bound_by = bound(res["cfg"], res["dtype"], res["shape"], res["work"])
-        resume = name.endswith("_resume")
+    for name in sorted(launches):
+        rec = measured[name]
+        bound_ms, bound_by = bound(rec["cfg"], rec["dtype"], rec["shape"], rec["work"])
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": RESUME_REPLACES if resume else REPLACES,
-            "launches": launches[name], "max_abs_err": res["err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "batch": res["shape"]["B"],
-            **ptxas[name.removesuffix("_resume")]})
-    say("done", script_s=time.perf_counter() - t_start)
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces(name),
+            "launches": launches[name], "max_abs_err": rec["err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "batch": rec["shape"]["B"], **ptxas[compiled_name(name)]})
+    say("done", script_s=time.perf_counter() - t_start,
+        measured_not_on_paths={name: dict(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                                          max_abs_err=rec["err"], batch=rec["shape"]["B"])
+                               for name, rec in sorted(measured.items()) if name not in launches})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels + repro_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,13 @@
 Counterpart of ``tools/validate_kernel_tpu.py``. For each shipped scenario:
 a cold float32 solve of 1024 perturbed starts (seed 0) with the config's
 own penalty family and reference point, window 384, w_back 24 and the
-derived per-step search bound; the kernel and the plain float32 version
-run on the same packed inputs, and both are held to the per-row float64
-exit statuses of ``tools/f64_anchors.json``. The gate:
+derived per-step search bound, in the modes the card resolves
+(``ck.resolve_modes``: the dot-form projection and chunks of 4 unless the
+``ILQR_*`` variables or ``--no-proj-dot`` say otherwise, so a plain run
+validates the shipped configuration); the kernel and the plain float32
+version run on the same packed inputs in those modes, and both are held
+to the per-row float64 exit statuses of ``tools/f64_anchors.json``. The
+gate:
 
 - convergence fraction within max(0.03, the plain version's gap) of the
   anchor's;
@@ -17,7 +21,7 @@ exit statuses of ``tools/f64_anchors.json``. The gate:
 
 Usage, on a machine with one CUDA GPU:
 
-    python -m ilqr_tpu_torch.apps.validate_kernel [--scenarios NAME ...]
+    python -m ilqr_tpu_torch.apps.validate_kernel [--scenarios NAME ...] [--no-proj-dot]
 
 prints one JSON line per scenario and exits 1 if any fails. The cold
 problems (``problem``, ``packed_cold``) and the float64 case table of the
@@ -78,13 +82,15 @@ def problem(name: str, batch: int, dtype=torch.float32, device="cuda", weights=N
 
 
 def packed_cold(name: str, batch: int, dtype=torch.float32, device="cuda", weights=None,
-                **cfg_overrides):
+                modes=None, **cfg_overrides):
     """(cfg, weights, PackedProblem) of a cold solve of ``problem``'s
-    starts on the first tick's validation window."""
+    starts on the first tick's validation window, in ``modes`` (None: the
+    device's resolved modes, ``ck.resolve_modes``)."""
     st, cfg, w, x0, rows = problem(name, batch, dtype, device, weights,
                                    **{**cfg_overrides, "use_last_solution": False})
     scenario = st.device_scenario(tick=0, dtype=dtype, device=device, batch=batch)
-    return cfg, w, ck.pack_problem(cfg, x0, scenario, WINDOW, None, W_BACK, rows)
+    modes = ck.resolve_modes(device) if modes is None else modes
+    return cfg, w, ck.pack_problem(cfg, x0, scenario, WINDOW, None, W_BACK, rows, modes=modes)
 
 
 def time_ms(fn, reps: int):
@@ -115,8 +121,9 @@ def agreement(k: ck.PackedSolution, r: ck.PackedSolution):
     return conv_k, conv_r, cost_p90, pos_p90
 
 
-def validate(name: str) -> dict:
-    """Run and gate one scenario at its anchors' batch; the result's
+def validate(name: str, proj_dot=None) -> dict:
+    """Run and gate one scenario at its anchors' batch, with ``proj_dot``
+    and the other modes as the card resolves them; the result's
     ``failures`` lists what failed (empty when it passes)."""
     anchor = json.loads(ANCHORS.read_text())[name]
     if int(anchor["seed"]) != 0:
@@ -124,7 +131,7 @@ def validate(name: str) -> dict:
     batch = int(anchor["batch"])
     f64_rows = np.array([int(c) for c in anchor["status_rows"]])
     conv_f64 = float(anchor["conv"])
-    cfg, w, p = packed_cold(name, batch)
+    cfg, w, p = packed_cold(name, batch, modes=ck.resolve_modes("cuda", proj_dot))
     kernel_ms, k = time_ms(lambda: ck.cilqr_solve_kernel(cfg, w, p), reps=3)
     k2 = ck.cilqr_solve_kernel(cfg, w, p)
     torch.cuda.synchronize()
@@ -152,7 +159,7 @@ def validate(name: str) -> dict:
     if not bitwise:
         failures.append("two kernel runs differ")
     return dict(
-        scenario=name, variant=ck.variant(cfg, torch.float32), batch=batch,
+        scenario=name, variant=ck.variant(cfg, torch.float32, p.modes), batch=batch,
         conv_f64=conv_f64, conv_kernel=float(conv_k.mean()), conv_plain=float(conv_r.mean()),
         agree_f64_kernel=agree_k, agree_f64_plain=agree_r, cost_relerr_p90=cost_p90,
         pos_absdiff_p90=pos_p90, bitwise_repeat=bitwise,
@@ -164,11 +171,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scenarios", nargs="+", default=list(SCENARIOS),
                         choices=SCENARIOS)
+    parser.add_argument("--proj-dot", action=argparse.BooleanOptionalAction, default=None,
+                        help="dot-form projection on or off (default: ILQR_PROJ_DOT, else on)")
     args = parser.parse_args(argv)
     entry_device("cuda")
     ok = True
     for name in args.scenarios:
-        res = validate(name)
+        res = validate(name, args.proj_dot)
         ok = ok and not res["failures"]
         print(json.dumps({"pass": not res["failures"], **res}), flush=True)
     return 0 if ok else 1

@@ -5,10 +5,13 @@
 // (:1545-1594), in these variants: both bicycle reference points (rear
 // center; gravity center with its Jacobian quirk), both penalty families
 // (exponential barrier; augmented Lagrangian with the duals as input and
-// output), warm-start controls, serial line search, squared-distance
-// first-min projection over a per-scenario reference-line window with
-// per-step row limits, and the resume entry of straggler compaction
-// (:97-105, :1156-1168: restart at iteration it0 from a stats slab). It computes what that kernel computes (reference
+// output), warm-start controls, the serial or the chunked line search
+// (`ls_chunk`, :844-890, :1021-1080), the projection over a per-scenario
+// reference-line window with per-step row limits in its four modes
+// (squared distance or the centred dot form `proj_dot`, :267-286, :364-367,
+// :433-434; first minimum or the pair-fold tournament `proj_fold`,
+// :368-399), and the resume entry of straggler compaction (:97-105,
+// :1156-1168: restart at iteration it0 from a stats slab). It computes what that kernel computes (reference
 // semantics: src/cilqr_solver.cpp:85-461 of the C++ project), not its
 // TPU layout: each thread walks the reference's loop shape over its own
 // scenario, with trajectory, gains and projection in per-thread arrays.
@@ -32,7 +35,31 @@
 // penalty family are template parameters: float is the production type,
 // double exists to check semantics against the plain version without
 // float32 chaos. The rear-center barrier instantiation is the code of the
-// first port (the variant branches are `if constexpr`).
+// first port (the variant branches are `if constexpr`). The projection
+// modes and the line search's chunk width are warp-uniform runtime
+// arguments, the projection's branched outside the window-row loop.
+//
+// The modes on this card:
+// - dot form: the TPU hoisted three window slabs once per solve; here the
+//   wrapper computes them once per launch as three (W, B) arrays (p_cr,
+//   p_nx, p_ny), so a row costs 3 loads, 2 products and 2 sums against the
+//   squared distance's 2 loads, 2 differences, a product and an FMA;
+// - fold: the tournament keeps ceil(R/2) scores and row indices in a
+//   (rows, B) scratch the wrapper allocates, not on the thread's stack,
+//   which every mode would then carry (~2.5 KB at R <= 312);
+// - chunked line search: a thread has no sublanes to pack trials into.
+//   Up to kMaxChunk rollout chains advance in one loop over the horizon,
+//   reading the gains and the current trajectory once for all of them.
+//   A trial is projected and costed in place in the chunk, and copied
+//   into the current trajectory only when it is adopted.
+//   The serial search is the chunked one at width 1, and the loop over a
+//   chunk's chains is not unrolled, so every trial of every width runs the
+//   same instructions: that is what makes a chunk bitwise the serial
+//   search. Two separately compiled kernels are not enough: nvcc contracts
+//   multiply-adds differently in each (a float64 ALM build with the chunk
+//   as a template flag differed from the serial build on the card). So the
+//   chains run one after another and the chunk buys no instruction-level
+//   parallelism; it costs the stack of kMaxChunk rollouts in every mode.
 
 #include <cuda_runtime.h>
 
@@ -42,6 +69,7 @@ namespace {
 
 constexpr int kMaxSteps = 32;  // N + 1 <= kMaxSteps
 constexpr int kBlock = 128;
+constexpr int kMaxChunk = 8;  // widest line-search chunk
 
 enum Status {
   kRunning = 0,
@@ -78,7 +106,15 @@ struct Problem {
   T* __restrict__ u_out;        // (2, N, B)
   T* __restrict__ x_out;        // (4, N+1, B)
   T* __restrict__ stats_out;    // (6, B)
+  // dot form (proj_dot): window terms (W, B) centred on window row 0,
+  // p_cr = |r - r0|^2, p_nx = -2 (rx - r0x), p_ny = -2 (ry - r0y)
+  const T* __restrict__ pcr;
+  const T* __restrict__ pnx;
+  const T* __restrict__ pny;
+  T* __restrict__ fold_s;       // (ceil(max row limit / 2), B) fold scratch (proj_fold)
+  int* __restrict__ fold_i;
   int B, N, M, W, max_iter, n_alphas;
+  int proj_dot, proj_fold, ls_chunk;  // ls_chunk: the chunk width, 0 (serial) to kMaxChunk
 };
 
 // ALM arguments: the duals in and out, C = 8 + 2M columns, and the
@@ -128,6 +164,20 @@ struct Traj {
   T px[kMaxSteps], py[kMaxSteps], pv[kMaxSteps], ph[kMaxSteps];
   T rx[kMaxSteps], ry[kMaxSteps], rh[kMaxSteps];
 };
+
+// A trajectory's arrays by address: `project` and `total_cost` read and
+// write the current trajectory and a line-search chunk's trials in place
+// through it, one instantiation for both, so the cost of an adopted trial
+// is the cost the resume entry recomputes from the same states, bit for bit.
+template <typename T>
+struct TrajView {
+  T *ua, *us, *px, *py, *pv, *ph, *rx, *ry, *rh;
+};
+
+template <typename T>
+__device__ __forceinline__ TrajView<T> view(Traj<T>& t) {
+  return {t.ua, t.us, t.px, t.py, t.pv, t.ph, t.rx, t.ry, t.rh};
+}
 
 // Per-thread constants of one solve, and its ALM state.
 template <typename T, bool kGravity, bool kAlm>
@@ -247,25 +297,103 @@ __device__ __forceinline__ void front_rear(const Ctx<T, G, A>& c, T px, T py, T 
   }
 }
 
-// Nearest window row of every state: first minimum of the squared distance
-// over rows [0, lim[k]) (strict < keeps the first index on ties).
-template <typename T, bool G, bool A>
-__device__ void project(const Ctx<T, G, A>& c, Traj<T>& t) {
-  const Problem<T>& p = c.p;
-  for (int k = 0; k <= c.N; ++k) {
-    const T qx = t.px[k], qy = t.py[k];
-    T dx = qx - c.at(p.rx, 0), dy = qy - c.at(p.ry, 0);
-    T best = dx * dx + dy * dy;
-    int bi = 0;
-    const int lim = c.lim[k];
-    for (int r = 1; r < lim; ++r) {
-      dx = qx - c.at(p.rx, r);
-      dy = qy - c.at(p.ry, r);
-      const T d2 = dx * dx + dy * dy;
-      if (d2 < best) {
-        best = d2;
-        bi = r;
+// Products and sums rounded to nearest that nvcc never contracts into an
+// FMA.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// Score of window row r for the query (qx, qy): the squared distance, or
+// the dot form (p_cr + p_nx qx) + p_ny qy with the query centred on window
+// row 0 (JAX kernel :280-286, :366-367, :434); both have the same argmin in
+// exact arithmetic. The dot form cancels (a score is |r - q|^2 - |q - r0|^2),
+// so it is rounded op by op as the plain version and the TPU kernel round
+// it: contracted into FMAs its near-ties broke otherwise than the plain
+// version's, enough to part float32 paths (three_bend ALM, first tick: cost
+// p90 1.5e-3 against 5e-6 with the squared distance, on the card).
+template <bool kDot, typename T, bool G, bool A>
+__device__ __forceinline__ T row_score(const Ctx<T, G, A>& c, int r, T qx, T qy) {
+  if constexpr (kDot) {
+    return add_rn(add_rn(c.at(c.p.pcr, r), mul_rn(c.at(c.p.pnx, r), qx)),
+                  mul_rn(c.at(c.p.pny, r), qy));
+  } else {
+    const T dx = qx - c.at(c.p.rx, r), dy = qy - c.at(c.p.ry, r);
+    return dx * dx + dy * dy;
+  }
+}
+
+// First minimum over rows [0, n) (strict < keeps the first index on ties).
+template <bool kDot, typename T, bool G, bool A>
+__device__ __forceinline__ int first_min(const Ctx<T, G, A>& c, T qx, T qy, int n) {
+  T best = row_score<kDot>(c, 0, qx, qy);
+  int bi = 0;
+  for (int r = 1; r < n; ++r) {
+    const T s = row_score<kDot>(c, r, qx, qy);
+    if (s < best) {
+      best = s;
+      bi = r;
+    }
+  }
+  return bi;
+}
+
+// The pair-fold tournament over rows [0, n) (JAX kernel :381-395): while
+// n > 1, slot i meets slot i + h (h = n / 2) and the later one wins only
+// on strict <; an odd tail slot 2h moves to slot h; n -= h. Ties go by
+// tournament order, not by first index. The first round scores the window
+// rows; later rounds halve the scratch in place (slot i < h is written,
+// slots >= h are read).
+template <bool kDot, typename T, bool G, bool A>
+__device__ int fold_min(const Ctx<T, G, A>& c, T qx, T qy, int n) {
+  T* const fs = c.p.fold_s + c.b;
+  int* const fi = c.p.fold_i + c.b;
+  const size_t B = c.p.B;
+  if (n == 1) return 0;
+  int h = n / 2;
+  for (int i = 0; i < h; ++i) {
+    const T lo = row_score<kDot>(c, i, qx, qy), hi = row_score<kDot>(c, i + h, qx, qy);
+    const bool up = hi < lo;
+    fs[i * B] = up ? hi : lo;
+    fi[i * B] = up ? i + h : i;
+  }
+  if (n & 1) {
+    fs[h * B] = row_score<kDot>(c, 2 * h, qx, qy);
+    fi[h * B] = 2 * h;
+  }
+  for (n -= h; n > 1; n -= h) {
+    h = n / 2;
+    for (int i = 0; i < h; ++i) {
+      const T hi = fs[(i + h) * B];
+      if (hi < fs[i * B]) {
+        fs[i * B] = hi;
+        fi[i * B] = fi[(i + h) * B];
       }
+    }
+    if (n & 1) {
+      fs[h * B] = fs[2 * h * B];
+      fi[h * B] = fi[2 * h * B];
+    }
+  }
+  return fi[0];
+}
+
+// Nearest window row of every state over rows [0, lim[k]), in the solve's
+// projection mode.
+template <typename T, bool G, bool A>
+__device__ void project(const Ctx<T, G, A>& c, TrajView<T> t) {
+  const Problem<T>& p = c.p;
+  // the dot form's query is centred on this scenario's window row 0
+  const T ox = p.proj_dot ? c.at(p.rx, 0) : T(0), oy = p.proj_dot ? c.at(p.ry, 0) : T(0);
+  for (int k = 0; k <= c.N; ++k) {
+    const int lim = c.lim[k];
+    int bi;
+    if (p.proj_fold) {
+      bi = p.proj_dot ? fold_min<true>(c, t.px[k] - ox, t.py[k] - oy, lim)
+                      : fold_min<false>(c, t.px[k], t.py[k], lim);
+    } else {
+      bi = p.proj_dot ? first_min<true>(c, t.px[k] - ox, t.py[k] - oy, lim)
+                      : first_min<false>(c, t.px[k], t.py[k], lim);
     }
     t.rx[k] = c.at(p.rx, bi);
     t.ry[k] = c.at(p.ry, bi);
@@ -296,9 +424,8 @@ __device__ __forceinline__ T ellipse(const Ctx<T, G, A>& c, int j, int k, T qx, 
 
 // Signed lateral offset to the projected row, sign(0) = +1
 // (src/cilqr_solver.cpp:507-509).
-template <typename T>
-__device__ __forceinline__ T lateral(const Traj<T>& t, int k, T* ddx, T* ddy, T* h,
-                                     T* dsign) {
+template <typename T, typename Tr>
+__device__ __forceinline__ T lateral(const Tr& t, int k, T* ddx, T* ddy, T* h, T* dsign) {
   *ddx = t.px[k] - t.rx[k];
   *ddy = t.py[k] - t.ry[k];
   *dsign = *ddy * cos_(t.rh[k]) - *ddx * sin_(t.rh[k]);
@@ -310,7 +437,7 @@ __device__ __forceinline__ T lateral(const Traj<T>& t, int k, T* ddx, T* ddy, T*
 // tracking cost on steps 0..N, control cost and control-bound penalties on
 // steps 0..N-1, state, border and obstacle penalties on steps 1..N.
 template <typename T, bool G, bool A>
-__device__ T total_cost(const Ctx<T, G, A>& c, const Traj<T>& t) {
+__device__ T total_cost(const Ctx<T, G, A>& c, TrajView<T> t) {
   const Weights<T>& w = c.w;
   T J = T(0);
   for (int k = 0; k <= c.N; ++k) {
@@ -568,30 +695,93 @@ __device__ bool backward(const Ctx<T, G, A>& c, const Traj<T>& t, T lamb, T (*K)
   return true;
 }
 
-// Closed-loop trial rollout u' = u + K (x' - x) + alpha d
-// (src/cilqr_solver.cpp:442-461).
+// One step of a closed-loop trial rollout, u' = u + K (x' - x) + alpha d,
+// then the dynamics (src/cilqr_solver.cpp:442-461).
 template <typename T, bool G, bool A>
-__device__ void forward(const Ctx<T, G, A>& c, const Traj<T>& cur, T (*K)[8], T (*d)[2],
-                        T alpha, Traj<T>& tr) {
-  T x = cur.px[0], y = cur.py[0], v = cur.pv[0], h = cur.ph[0];
-  tr.px[0] = x;
-  tr.py[0] = y;
-  tr.pv[0] = v;
-  tr.ph[0] = h;
-  for (int k = 0; k < c.N; ++k) {
-    const T e0 = x - cur.px[k], e1 = y - cur.py[k], e2 = v - cur.pv[k], e3 = h - cur.ph[k];
-    const T na = cur.ua[k] + (K[k][0] * e0 + K[k][1] * e1 + K[k][2] * e2 + K[k][3] * e3) +
-                 alpha * d[k][0];
-    const T ns = cur.us[k] + (K[k][4] * e0 + K[k][5] * e1 + K[k][6] * e2 + K[k][7] * e3) +
-                 alpha * d[k][1];
-    tr.ua[k] = na;
-    tr.us[k] = ns;
-    propagate(c, x, y, v, h, na, ns);
-    tr.px[k + 1] = x;
-    tr.py[k + 1] = y;
-    tr.pv[k + 1] = v;
-    tr.ph[k + 1] = h;
+__device__ __forceinline__ void trial_step(const Ctx<T, G, A>& c, const Traj<T>& cur,
+                                           const T* Kk, const T* dk, int k, T alpha, T& x, T& y,
+                                           T& v, T& h, T& na, T& ns) {
+  const T e0 = x - cur.px[k], e1 = y - cur.py[k], e2 = v - cur.pv[k], e3 = h - cur.ph[k];
+  na = cur.ua[k] + (Kk[0] * e0 + Kk[1] * e1 + Kk[2] * e2 + Kk[3] * e3) + alpha * dk[0];
+  ns = cur.us[k] + (Kk[4] * e0 + Kk[5] * e1 + Kk[6] * e2 + Kk[7] * e3) + alpha * dk[1];
+  propagate(c, x, y, v, h, na, ns);
+}
+
+// The trial rollouts of one line-search chunk, chain by chain: controls
+// and states of up to kMaxChunk alphas (JAX kernel `forward_packed`,
+// :857-890), and the projection of the trial being judged.
+template <typename T>
+struct Chunk {
+  T ua[kMaxChunk][kMaxSteps], us[kMaxChunk][kMaxSteps];
+  T px[kMaxChunk][kMaxSteps], py[kMaxChunk][kMaxSteps];
+  T pv[kMaxChunk][kMaxSteps], ph[kMaxChunk][kMaxSteps];
+  T rx[kMaxSteps], ry[kMaxSteps], rh[kMaxSteps];
+
+  // trial a, in place
+  __device__ __forceinline__ TrajView<T> trial(int a) {
+    return {ua[a], us[a], px[a], py[a], pv[a], ph[a], rx, ry, rh};
   }
+};
+
+// Closed-loop trial rollouts at alpha0, alpha0 / 2, ... (m of them, 1 <=
+// m <= kMaxChunk) as independent chains advanced together, step by step.
+// The chain loop stays a loop (unroll 1): chain a runs the instructions
+// chain 0 runs, so a trial's bits do not depend on its place in a chunk.
+template <typename T, bool G, bool A>
+__device__ void forward_chunk(const Ctx<T, G, A>& c, const Traj<T>& cur, T (*K)[8], T (*d)[2],
+                              T alpha0, int m, Chunk<T>& ch) {
+  T al[kMaxChunk], x[kMaxChunk], y[kMaxChunk], v[kMaxChunk], h[kMaxChunk];
+#pragma unroll 1
+  for (int a = 0; a < m; ++a) {
+    al[a] = a == 0 ? alpha0 : al[a - 1] * T(0.5);
+    x[a] = ch.px[a][0] = cur.px[0];
+    y[a] = ch.py[a][0] = cur.py[0];
+    v[a] = ch.pv[a][0] = cur.pv[0];
+    h[a] = ch.ph[a][0] = cur.ph[0];
+  }
+  for (int k = 0; k < c.N; ++k) {
+#pragma unroll 1
+    for (int a = 0; a < m; ++a) {
+      trial_step(c, cur, K[k], d[k], k, al[a], x[a], y[a], v[a], h[a], ch.ua[a][k], ch.us[a][k]);
+      ch.px[a][k + 1] = x[a];
+      ch.py[a][k + 1] = y[a];
+      ch.pv[a][k + 1] = v[a];
+      ch.ph[a][k + 1] = h[a];
+    }
+  }
+}
+
+// Trial a of a chunk, projected, becomes the current trajectory.
+template <typename T>
+__device__ void adopt(const Chunk<T>& ch, int a, int N, Traj<T>& cur) {
+  for (int k = 0; k <= N; ++k) {
+    if (k < N) {
+      cur.ua[k] = ch.ua[a][k];
+      cur.us[k] = ch.us[a][k];
+    }
+    cur.px[k] = ch.px[a][k];
+    cur.py[k] = ch.py[a][k];
+    cur.pv[k] = ch.pv[a][k];
+    cur.ph[k] = ch.ph[a][k];
+    cur.rx[k] = ch.rx[k];
+    cur.ry[k] = ch.ry[k];
+    cur.rh[k] = ch.rh[k];
+  }
+}
+
+// The verdict on line-search trial t at alpha (src/cilqr_solver.cpp:352-372):
+// convergence is tested on the first trial only, and a converged trial is
+// not adopted.
+enum Verdict { kReject, kConverge, kAccept };
+
+template <typename T>
+__device__ __forceinline__ Verdict verdict(const Weights<T>& w, int t, T alpha, T J, T nJ, T dV1,
+                                           T dV2) {
+  const T decay = J - nJ;
+  if (t == 0 && fabs(decay) < w.conv_thresh) return kConverge;
+  const T approx = -(alpha * alpha * dV1 + alpha * dV2);
+  const bool ratio_ok = approx != T(0) ? decay / approx > w.accept_thresh : true;
+  return decay > T(0) && (approx < T(0) || ratio_ok) ? kAccept : kReject;
 }
 
 // mu <- clip(mu + rho c, 0, max_mu) for one column; NaN stays NaN, as
@@ -680,8 +870,9 @@ __global__ void __launch_bounds__(kBlock)
     c.rho = alm.rho_in[b];
   }
 
-  Traj<T> cur, trial;
+  Traj<T> cur;
   T K[kMaxSteps][8], d[kMaxSteps][2];
+  Chunk<T> chunk;
   T x = c.at(p.x0, 0), y = c.at(p.x0, 1), v = c.at(p.x0, 2), h = c.at(p.x0, 3);
   cur.px[0] = x;
   cur.py[0] = y;
@@ -696,9 +887,9 @@ __global__ void __launch_bounds__(kBlock)
     cur.pv[k + 1] = v;
     cur.ph[k + 1] = h;
   }
-  project(c, cur);
+  project(c, view(cur));
   // cost of `cur` under the current duals, kept in step with both
-  T J = total_cost(c, cur);
+  T J = total_cost(c, view(cur));
 
   T lamb = w.init_lamb;
   int status = kRunning, iters = 0, it = 0;
@@ -716,27 +907,34 @@ __global__ void __launch_bounds__(kBlock)
     const bool pd = backward(c, cur, lamb, K, d, dV1, dV2);
     bool accepted = false, conv_now = false, small = false;
     if (pd) {
-      T alpha = T(1);
-      for (int t = 0; t < p.n_alphas; ++t, alpha *= T(0.5)) {
-        forward(c, cur, K, d, alpha, trial);
-        project(c, trial);
-        const T nJ = total_cost(c, trial);
-        const T decay = J - nJ;
-        // convergence is tested on the first trial only, and a converged
-        // trial is not adopted (src/cilqr_solver.cpp:352-365)
-        if (t == 0 && fabs(decay) < w.conv_thresh) {
-          conv_now = true;
-          break;
+      // the alphas 1, 1/2, ... in order, rolled out in chunks of ls_chunk
+      // (1 when serial); each trial is projected and costed only while no
+      // earlier one was adopted or converged. Alphas past n_alphas are not
+      // rolled out (the TPU kernel rolled them out and masked them,
+      // :1060-1064).
+      const int width = p.ls_chunk > 0 ? p.ls_chunk : 1;
+      T alpha = T(1), nJ = T(0);
+      int t = 0;
+      Verdict vd = kReject;
+      while (t < p.n_alphas && vd == kReject) {
+        const int m = min(width, p.n_alphas - t);
+        forward_chunk(c, cur, K, d, alpha, m, chunk);
+#pragma unroll 1
+        for (int a = 0; a < m; ++a, ++t, alpha *= T(0.5)) {
+          const TrajView<T> trial = chunk.trial(a);
+          project(c, trial);
+          nJ = total_cost(c, trial);
+          vd = verdict(w, t, alpha, J, nJ, dV1, dV2);
+          if (vd == kAccept) adopt(chunk, a, N, cur);
+          if (vd != kReject) break;
         }
-        const T approx = -(alpha * alpha * dV1 + alpha * dV2);
-        const bool ratio_ok = approx != T(0) ? decay / approx > w.accept_thresh : true;
-        if (decay > T(0) && (approx < T(0) || ratio_ok)) {
-          accepted = true;
-          small = t > 0;
-          cur = trial;
-          J = nJ;
-          break;
-        }
+      }
+      if (vd == kConverge) {
+        conv_now = true;
+      } else if (vd == kAccept) {
+        accepted = true;
+        small = t > 0;
+        J = nJ;
       }
     }
     // status precedence and the lambda schedule (src/cilqr_solver.cpp:110-142)
@@ -755,7 +953,7 @@ __global__ void __launch_bounds__(kBlock)
       // so the carried cost is recomputed after they move
       if (status == kForwardPassFail) {
         dual_update(c, cur);
-        J = total_cost(c, cur);
+        J = total_cost(c, view(cur));
       }
     }
     if (status == kBackwardPassFail || status == kForwardPassFail) {
@@ -803,13 +1001,19 @@ template <typename T>
 int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T* rx,
            const T* ry, const T* ryaw, const T* ox, const T* oy, const T* oyaw, const T* mu_in,
            const T* rho_in, const T* stats_in, T* u_out, T* x_out, T* stats_out, T* mu_out,
-           T* rho_out, int B, int N, int M, int W, int max_iter, int it0, int n_alphas,
-           int gravity, int alm, cudaStream_t stream) {
+           T* rho_out, const T* pcr, const T* pnx, const T* pny, T* fold_s, int* fold_i, int B,
+           int N, int M, int W, int max_iter, int it0, int n_alphas, int gravity, int alm,
+           int proj_dot, int proj_fold, int ls_chunk, cudaStream_t stream) {
   static_assert(sizeof(Weights<T>) == kNumWeights * sizeof(T), "weights layout");
   if (B < 0 || N < 1 || N + 1 > kMaxSteps || M < 0 || W < 1 || max_iter < 0 || n_alphas < 0)
     return cudaErrorInvalidValue;
   if (it0 < 0 || (!stats_in && it0 != 0)) return cudaErrorInvalidValue;
   if (alm && !(mu_in && rho_in && mu_out && rho_out)) return cudaErrorInvalidValue;
+  if ((proj_dot != 0 && proj_dot != 1) || (proj_fold != 0 && proj_fold != 1) || ls_chunk < 0 ||
+      ls_chunk > kMaxChunk)
+    return cudaErrorInvalidValue;
+  if (proj_dot && !(pcr && pnx && pny)) return cudaErrorInvalidValue;
+  if (proj_fold && !(fold_s && fold_i)) return cudaErrorInvalidValue;
   Weights<T> w;
   std::memcpy(&w, wts, sizeof(w));
   RowLimits lim = {};
@@ -818,8 +1022,10 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
     lim.r[k] = limits[k];
   }
   if (B == 0) return cudaSuccess;
-  const Problem<T> p = {x0, uinit, rx, ry, ryaw, ox, oy, oyaw, u_out, x_out, stats_out,
-                        B, N, M, W, max_iter, n_alphas};
+  const Problem<T> p = {x0,       uinit,  rx,     ry,        ryaw,      ox,       oy,
+                        oyaw,     u_out,  x_out,  stats_out, pcr,       pnx,      pny,
+                        fold_s,   fold_i, B,      N,         M,         W,        max_iter,
+                        n_alphas, proj_dot, proj_fold, ls_chunk};
   const AlmArgs<T> a = {mu_in, rho_in, mu_out, rho_out, wts[kNumWeights],
                         wts[kNumWeights + 1], wts[kNumWeights + 2]};
   if (gravity) {
@@ -835,32 +1041,25 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
 // Plain C entry points (bound with ctypes). `wts` and `limits` are host
 // arrays: kNumWeights + kNumAlmWeights scalars in _WEIGHT_ORDER and N+1 row
 // limits; every other pointer is device memory (the four dual pointers may
-// be null when alm == 0). `stats_in` (6, B), or null, selects the resume
-// entry, which runs iterations [it0, max_iter); it0 is 0 without it.
-// `gravity` and `alm` pick the instantiation. Returns the launch's
-// cudaError_t.
-extern "C" int cilqr_solve_f32(const float* wts, const int* limits, const float* x0,
-                               const float* uinit, const float* rx, const float* ry,
-                               const float* ryaw, const float* ox, const float* oy,
-                               const float* oyaw, const float* mu_in, const float* rho_in,
-                               const float* stats_in, float* u_out, float* x_out,
-                               float* stats_out, float* mu_out, float* rho_out, int B, int N,
-                               int M, int W, int max_iter, int it0, int n_alphas, int gravity,
-                               int alm, void* stream) {
-  return launch<float>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,
-                       stats_in, u_out, x_out, stats_out, mu_out, rho_out, B, N, M, W, max_iter,
-                       it0, n_alphas, gravity, alm, static_cast<cudaStream_t>(stream));
-}
+// be null when alm == 0, the dot-form terms when proj_dot == 0, the fold
+// scratch when proj_fold == 0). `stats_in` (6, B), or null, selects the
+// resume entry, which runs iterations [it0, max_iter); it0 is 0 without it.
+// `gravity` and `alm` pick the instantiation; `proj_dot` and `proj_fold`
+// the projection mode; `ls_chunk` is the line search's chunk width, 0
+// (serial) to kMaxChunk. Returns the launch's cudaError_t.
+#define CILQR_ENTRY(NAME, T)                                                                   \
+  extern "C" int NAME(const T* wts, const int* limits, const T* x0, const T* uinit,            \
+                      const T* rx, const T* ry, const T* ryaw, const T* ox, const T* oy,       \
+                      const T* oyaw, const T* mu_in, const T* rho_in, const T* stats_in,       \
+                      T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out, const T* pcr,   \
+                      const T* pnx, const T* pny, T* fold_s, int* fold_i, int B, int N, int M, \
+                      int W, int max_iter, int it0, int n_alphas, int gravity, int alm,        \
+                      int proj_dot, int proj_fold, int ls_chunk, void* stream) {               \
+    return launch<T>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,       \
+                     stats_in, u_out, x_out, stats_out, mu_out, rho_out, pcr, pnx, pny,       \
+                     fold_s, fold_i, B, N, M, W, max_iter, it0, n_alphas, gravity, alm,       \
+                     proj_dot, proj_fold, ls_chunk, static_cast<cudaStream_t>(stream));       \
+  }
 
-extern "C" int cilqr_solve_f64(const double* wts, const int* limits, const double* x0,
-                               const double* uinit, const double* rx, const double* ry,
-                               const double* ryaw, const double* ox, const double* oy,
-                               const double* oyaw, const double* mu_in, const double* rho_in,
-                               const double* stats_in, double* u_out, double* x_out,
-                               double* stats_out, double* mu_out, double* rho_out, int B, int N,
-                               int M, int W, int max_iter, int it0, int n_alphas, int gravity,
-                               int alm, void* stream) {
-  return launch<double>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,
-                        stats_in, u_out, x_out, stats_out, mu_out, rho_out, B, N, M, W,
-                        max_iter, it0, n_alphas, gravity, alm, static_cast<cudaStream_t>(stream));
-}
+CILQR_ENTRY(cilqr_solve_f32, float)
+CILQR_ENTRY(cilqr_solve_f64, double)

@@ -9,7 +9,8 @@ reference's ALM dual layout (src/cilqr_solver.cpp:622-676):
   8+2j obs_j_front, 9+2j obs_j_rear.
 
 ``row_limits`` (optional, (N+1,) integers) bounds each step's nearest-point
-search to the first rows of ``scenario.ref_line`` (see ops/projection.py).
+search to the first rows of ``scenario.ref_line``, and ``modes`` picks the
+fused solve's projection mode (``Modes``, see ops/projection.py).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ilqr_tpu_torch.ops import constraints as C
-from ilqr_tpu_torch.ops.projection import nearest_ref_points
+from ilqr_tpu_torch.ops.projection import Modes, nearest_ref_points
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
 
 
@@ -31,12 +32,12 @@ class CostDerivatives(NamedTuple):
     alm_mu_next: torch.Tensor  # (B, N, C)
 
 
-def _ref_states(cfg: CILQRConfig, x, scenario, row_limits):
+def _ref_states(cfg: CILQRConfig, x, scenario, row_limits, modes):
     """Nearest ref rows + the (B, N+1, 4) tracking target [rx, ry, v_ref, ryaw]
     (reference src/cilqr_solver.cpp:205-209)."""
     if cfg.projection != "exact":
         raise NotImplementedError(f"projection={cfg.projection!r} is not ported")
-    ref_pts = nearest_ref_points(x[..., :2], scenario.ref_line, row_limits)[..., :3]
+    ref_pts = nearest_ref_points(x[..., :2], scenario.ref_line, row_limits, modes)[..., :3]
     v_ref = scenario.ref_velo.to(x.dtype)[:, None].expand(-1, x.shape[1])
     ref_states = torch.stack([ref_pts[..., 0], ref_pts[..., 1], v_ref, ref_pts[..., 2]],
                              dim=-1)
@@ -92,23 +93,24 @@ def _prime_cost(w: CILQRWeights, u, x, ref_states):
 
 
 def total_cost(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
-               alm_rho=None, alm_mu=None, row_limits=None):
+               alm_rho=None, alm_mu=None, row_limits=None, modes: Modes = Modes()):
     """(B,) J = quadratic tracking + control energy + penalty terms
     (reference src/cilqr_solver.cpp:199-287)."""
-    ref_pts, ref_states = _ref_states(cfg, x, scenario, row_limits)
+    ref_pts, ref_states = _ref_states(cfg, x, scenario, row_limits, modes)
     c_all = torch.cat(_constraint_values(cfg, w, u, x, ref_pts, scenario), dim=-1)
     value, _, _ = _penalty_coeffs(cfg, w, c_all, alm_rho, alm_mu)
     return _prime_cost(w, u, x, ref_states) + value.sum(dim=(1, 2))
 
 
 def cost_and_derivatives(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
-                         alm_rho=None, alm_mu=None, row_limits=None):
+                         alm_rho=None, alm_mu=None, row_limits=None,
+                         modes: Modes = Modes()):
     """(J (B,), CostDerivatives) in one pass (reference
     src/cilqr_solver.cpp:199-287 and :463-690), sharing the projection,
     constraint values and penalty coefficients."""
     N, M = cfg.N, cfg.num_obstacles
     B = x.shape[0]
-    ref_pts, ref_states = _ref_states(cfg, x, scenario, row_limits)
+    ref_pts, ref_states = _ref_states(cfg, x, scenario, row_limits, modes)
     xk = x[:, 1:]
     rk = ref_pts[:, 1:]
 

@@ -5,10 +5,31 @@ Counterpart of ``ilqr_tpu/ops/pallas/cilqr_kernel.py`` (the TPU kernel
 kernel itself is CUDA C++ in ``ilqr_tpu_torch/csrc/cilqr_kernel.cu``: one
 thread runs one scenario's whole solve (initial rollout and projection, up
 to ``max_iter`` iterations of cost derivatives, Riccati backward pass and
-serial line search, the lambda/status machine, and in ALM mode the dual
+line search, the lambda/status machine, and in ALM mode the dual
 update). It is instantiated per scalar type (float32, float64), bicycle
 reference point (rear center, gravity center) and penalty family
-(barrier, ALM); ``variant`` names the instantiation a solve takes.
+(barrier, ALM); the projection mode and the line search's chunk width are
+runtime arguments. ``variant`` names what a solve runs.
+
+The modes (``Modes`` of ``ops/projection.py``, carried by ``PackedProblem``
+so the kernel, its plain version and a resumed phase read the same
+settings) are the JAX kernel's:
+
+- ``proj_dot``: score window rows with the dot form ``(p_cr + p_nx x') +
+  p_ny y'`` in coordinates centred on each scenario's window row 0, the
+  three window terms computed once per launch (``dot_terms``), instead of
+  the squared distance; same argmin in exact arithmetic, other rounding;
+- ``proj_fold``: reduce the scores with the pair-fold tournament instead
+  of the first minimum; other tie-breaking;
+- ``ls_chunk``: roll the line search's trials out ``ls_chunk`` alphas at a
+  time; bitwise the serial line search.
+
+``resolve_modes`` fills the ones not given the way ``cilqr_solve_pallas``
+does (ilqr_tpu/ops/pallas/cilqr_kernel.py:1354-1383), from ``ILQR_PROJ_DOT``,
+``ILQR_LS_CHUNK`` and ``ILQR_PROJ_FOLD``: on CUDA tensors the JAX package's
+hardware defaults (dot form on, chunks of 4, fold off), on CPU tensors its
+interpret-mode ones (all off), since the plain version plays interpret
+mode's part.
 
 This module holds what the JAX package did outside its kernel, in plain
 torch:
@@ -74,6 +95,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ilqr_tpu_torch.models.bicycle import GRAVITY_CENTER, REAR_CENTER
+from ilqr_tpu_torch.ops.projection import Modes, dot_terms
 from ilqr_tpu_torch.solvers.cilqr import ResumeState, alpha_schedule, solve_from_controls
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
 
@@ -82,9 +104,10 @@ W_BACK = 64  # window rows behind the ego's initial projection
 # shipped value, ilqr_tpu/ops/pallas/cilqr_kernel.py:1235).
 _PROJ_SLACK = 16
 MAX_STEPS = 32  # the kernel's horizon bound: N + 1 <= MAX_STEPS
+MAX_LS_CHUNK = 8  # the widest line-search chunk (kMaxChunk in the .cu source)
 
-# Kernel launches in this process, by instantiation (``variant``; a launch
-# of the resume entry counts under ``variant + "_resume"``); only
+# Kernel launches in this process, by instantiation and modes (``variant``;
+# a launch of the resume entry counts under ``variant + "_resume"``); only
 # ``cilqr_solve_kernel`` adds to them, once per launch.
 launches: collections.Counter = collections.Counter()
 
@@ -108,24 +131,76 @@ _POINTS = {REAR_CENTER: "rear", GRAVITY_CENTER: "gravity"}
 _PENALTIES = ("barrier", "alm")
 
 
-def instantiation(cfg: CILQRConfig, dtype: torch.dtype) -> tuple:
+_MODE_ENV = {"proj_dot": "ILQR_PROJ_DOT", "ls_chunk": "ILQR_LS_CHUNK",
+             "proj_fold": "ILQR_PROJ_FOLD"}
+# the defaults when neither the caller nor the environment sets a mode:
+# the JAX package's on its chip, and in interpret mode for CPU tensors
+_MODE_DEFAULTS = {"cuda": Modes(True, 4, False), "cpu": Modes()}
+
+
+def check_modes(modes: Modes) -> None:
+    """Raise unless ``modes`` is one the kernel runs."""
+    for name in ("proj_dot", "proj_fold"):
+        if getattr(modes, name) not in (False, True):
+            raise ValueError(f"{name}={getattr(modes, name)!r}: expected a bool")
+    chunk = modes.ls_chunk
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or not 0 <= chunk <= MAX_LS_CHUNK:
+        raise ValueError(f"ls_chunk={chunk!r}: expected an int in [0, {MAX_LS_CHUNK}]")
+
+
+def resolve_modes(device, proj_dot=None, ls_chunk=None, proj_fold=None,
+                  env=None) -> Modes:
+    """The modes of a solve on ``device``: each one given stands, each None
+    comes from its ``ILQR_*`` variable in ``env`` (``os.environ`` when None)
+    or else from the device's default (``_MODE_DEFAULTS``). Raises on an
+    unknown value or a width outside [0, MAX_LS_CHUNK]."""
+    env = os.environ if env is None else env
+    kind = torch.device(device).type
+    if kind not in _MODE_DEFAULTS:
+        raise ValueError(f"unsupported device {device}")
+    given = {"proj_dot": proj_dot, "ls_chunk": ls_chunk, "proj_fold": proj_fold}
+    out = {}
+    for name, value in given.items():
+        if value is None and _MODE_ENV[name] in env:
+            text = env[_MODE_ENV[name]]
+            if name == "ls_chunk":
+                try:
+                    value = int(text)
+                except ValueError:
+                    raise ValueError(f"{_MODE_ENV[name]}={text!r}: expected an int") from None
+            elif text in ("0", "1"):
+                value = text == "1"
+            else:
+                raise ValueError(f"{_MODE_ENV[name]}={text!r}: expected 0 or 1")
+        out[name] = getattr(_MODE_DEFAULTS[kind], name) if value is None else value
+    modes = Modes(**out)
+    check_modes(modes)
+    return modes
+
+
+def instantiation(cfg: CILQRConfig, dtype: torch.dtype, modes: Modes = Modes()) -> tuple:
     """(``"f32"`` or ``"f64"``, gravity center?, ALM?): the kernel
     instantiation that solves ``cfg`` in ``dtype``; raises on what the
-    kernel lacks."""
+    kernel lacks, ``modes`` included."""
     if dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {dtype}")
     if cfg.reference_point not in _POINTS:
         raise ValueError(f"unknown reference_point {cfg.reference_point!r}")
     if cfg.solve_type not in _PENALTIES:
         raise ValueError(f"unknown solve_type {cfg.solve_type!r}")
+    check_modes(modes)
     return _DTYPES[dtype], cfg.reference_point == GRAVITY_CENTER, cfg.solve_type == "alm"
 
 
-def variant(cfg: CILQRConfig, dtype: torch.dtype) -> str:
-    """Name of the kernel instantiation that solves ``cfg`` in ``dtype``,
-    e.g. ``cilqr_solve_f32_gravity_alm``; raises on what the kernel lacks."""
-    dt, gravity, alm = instantiation(cfg, dtype)
-    return f"cilqr_solve_{dt}_{('rear', 'gravity')[gravity]}_{_PENALTIES[alm]}"
+def variant(cfg: CILQRConfig, dtype: torch.dtype, modes: Modes = Modes()) -> str:
+    """Name of what solves ``cfg`` in ``dtype`` under ``modes``: the
+    kernel instantiation, e.g. ``cilqr_solve_f32_gravity_alm``, and a
+    suffix per mode on (``_dot``, ``_fold``, ``_ls``); raises on what the
+    kernel lacks."""
+    dt, gravity, alm = instantiation(cfg, dtype, modes)
+    suffix = "".join(tag for tag, on in (("_dot", modes.proj_dot), ("_fold", modes.proj_fold),
+                                         ("_ls", modes.ls_chunk > 0)) if on)
+    return f"cilqr_solve_{dt}_{('rear', 'gravity')[gravity]}_{_PENALTIES[alm]}{suffix}"
 
 
 def derive_proj_rows(target_velocity, dt, factor: float = 1.1) -> int:
@@ -165,6 +240,7 @@ class PackedProblem:
     # and duals are uinit, mu and rho; None starts at iteration 0
     stats: Optional[torch.Tensor] = None
     it0: int = 0
+    modes: Modes = Modes()
 
 
 class PackedSolution(NamedTuple):
@@ -180,10 +256,12 @@ class PackedSolution(NamedTuple):
 def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
                  u_init=None, w_back: int = W_BACK,
                  proj_rows_per_step: int = 0, alm_mu0=None,
-                 alm_rho0=None) -> PackedProblem:
+                 alm_rho0=None, modes: Modes = Modes()) -> PackedProblem:
     """Window gather, obstacle pad and packing, in the dtype and on the
     device of ``x0_b`` (B, 4). ``alm_mu0`` (B, N, C0) and ``alm_rho0`` (B,)
-    seed the duals in ALM mode (ignored otherwise)."""
+    seed the duals in ALM mode (ignored otherwise). The initial nearest
+    index is the squared distance's first minimum in every mode, as in the
+    JAX package (ilqr_tpu/ops/pallas/cilqr_kernel.py:1447)."""
     dtype, dev = x0_b.dtype, x0_b.device
     B, N, W = x0_b.shape[0], cfg.N, window
     ref = scenario_b.ref_line.to(dtype)  # (B, P, 4)
@@ -219,17 +297,18 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
         x0=x0_in.contiguous(), uinit=uinit,
         rx=lanes(win[..., 0]), ry=lanes(win[..., 1]), ryaw=lanes(win[..., 2]),
         ox=lanes(obs[..., 0]), oy=lanes(obs[..., 1]), oyaw=lanes(obs[..., 2]),
-        row_limits=row_limits(N, W, w_back, proj_rows_per_step), mu=mu, rho=rho)
+        row_limits=row_limits(N, W, w_back, proj_rows_per_step), mu=mu, rho=rho, modes=modes)
 
 
 def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
                     work: Optional[dict] = None,
                     max_iter: Optional[int] = None) -> PackedSolution:
     """Plain version of the kernel: same packed inputs, same outputs, any
-    dtype on any device (the eager solver with the windowed projection).
-    Runs iterations [p.it0, max_iter) (``cfg.max_iter`` when None), from
-    ``p.stats`` when given. ``work`` receives the solver's trial and
-    dual-update counts (see ``solve_from_controls``)."""
+    dtype on any device (the eager solver with the windowed projection, in
+    the problem's modes). Runs iterations [p.it0, max_iter)
+    (``cfg.max_iter`` when None), from ``p.stats`` when given. ``work``
+    receives the solver's rollout, trial and dual-update counts (see
+    ``solve_from_controls``)."""
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
     win = torch.stack([p.rx, p.ry, p.ryaw, torch.zeros_like(p.rx)], dim=-1)  # (W,B,4)
     obs = torch.stack([p.ox, p.oy, p.oyaw], dim=-1)[:M]  # (M, N+1, B, 3)
@@ -246,9 +325,11 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     if p.stats is not None:  # iterations and statuses are stored as floats
         resume = ResumeState(p.it0, p.stats[0].round().to(torch.int32),
                              p.stats[1].round().to(torch.int32), p.stats[5])
+    check_modes(p.modes)
     u, x, st, rho, mu = solve_from_controls(cfg, w, p.x0[:4].T, p.uinit.permute(2, 1, 0),
                                             scenario, p.rho, mu0, row_limits=limits,
-                                            work=work, max_iter=max_iter, resume=resume)
+                                            work=work, max_iter=max_iter, resume=resume,
+                                            modes=p.modes)
     stats = torch.stack([st.iters.to(u.dtype), st.status.to(u.dtype),
                          st.converged.to(u.dtype), st.lamb_overflow.to(u.dtype),
                          st.final_cost, st.final_lamb])
@@ -300,7 +381,7 @@ def load_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("cilqr_solve_f32", "cilqr_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 18 + [ci] * 9 + [vp]
+        fn.argtypes = [vp] * 23 + [ci] * 12 + [vp]
         fn.restype = ci
     return lib, log
 
@@ -309,7 +390,9 @@ def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
     """Raise unless ``p`` is what the kernel takes: contiguous arrays of one
     floating dtype on one device (those of ``p.x0``) in the packed shapes,
     N + 1 row limits in [1, W], N + 1 <= MAX_STEPS, duals (when given)
-    of C = 8 + 2M columns and a resume slab (when given) of 6 rows."""
+    of C = 8 + 2M columns, a resume slab (when given) of 6 rows and modes
+    the kernel runs."""
+    check_modes(p.modes)
     dtype, device = p.x0.dtype, p.x0.device
     N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
     if N + 1 > MAX_STEPS:
@@ -338,8 +421,8 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     entry when ``p.stats`` is given; returns the solution packed like
     ``cilqr_solve_ref``'s. Raises on anything the kernel lacks."""
     dtype, dev = p.x0.dtype, p.x0.device
-    name = variant(cfg, dtype) + ("" if p.stats is None else "_resume")
-    _, gravity, alm = instantiation(cfg, dtype)
+    name = variant(cfg, dtype, p.modes) + ("" if p.stats is None else "_resume")
+    _, gravity, alm = instantiation(cfg, dtype, p.modes)
     if dev.type != "cuda":
         raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {dev}")
     check_packed(cfg, p)
@@ -351,6 +434,15 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
         rho_in = w.alm_rho_init.to(dtype).expand(B).contiguous() if p.rho is None else p.rho
         mu = torch.empty_like(mu_in)
         rho = torch.empty_like(rho_in)
+    # the dot form's window terms, once per launch; the fold's scratch of
+    # ceil(R / 2) scores and row indices per scenario
+    pcr = pnx = pny = fold_s = fold_i = None
+    if p.modes.proj_dot:
+        pcr, pnx, pny = dot_terms(p.rx, p.ry, dim=0)
+    if p.modes.proj_fold:
+        half = (max(p.row_limits) + 1) // 2
+        fold_s = torch.empty((half, B), dtype=dtype, device=dev)
+        fold_i = torch.empty((half, B), dtype=torch.int32, device=dev)
     lib, _ = load_library()
     u = torch.empty((2, N, B), dtype=dtype, device=dev)
     x = torch.empty((4, N + 1, B), dtype=dtype, device=dev)
@@ -368,9 +460,11 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(wts), ctypes.addressof(lims),
                  *(ptr(t) for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw, p.ox, p.oy, p.oyaw,
-                                    mu_in, rho_in, p.stats, u, x, stats, mu, rho)),
+                                    mu_in, rho_in, p.stats, u, x, stats, mu, rho,
+                                    pcr, pnx, pny, fold_s, fold_i)),
                  B, N, M, W, cfg.max_iter if max_iter is None else max_iter, p.it0,
-                 len(alpha_schedule(cfg.min_alpha)), int(gravity), int(alm), stream)
+                 len(alpha_schedule(cfg.min_alpha)), int(gravity), int(alm),
+                 int(p.modes.proj_dot), int(p.modes.proj_fold), p.modes.ls_chunk, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launches[name] += 1
@@ -441,7 +535,8 @@ def solve_packed(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem, straggler_
 def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenario,
                      window: int = 512, u_init=None, proj_rows_per_step: int = 0,
                      w_back: int = W_BACK, alm_mu0=None, alm_rho0=None,
-                     return_alm: bool = False, straggler_cap=0):
+                     return_alm: bool = False, straggler_cap=0, proj_dot=None,
+                     ls_chunk=None, proj_fold=None):
     """Batched CILQR solve through the fused kernel.
 
     x0_b (B, 4); scenario_b: batched ``Scenario``; u_init (B, N, 2) warm-start
@@ -460,11 +555,18 @@ def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenar
     caps outside (0, max_iter) are dropped, and 0 (the default) solves in
     one launch. Results are bitwise those of one launch
     (``solve_packed``).
+
+    ``proj_dot``, ``ls_chunk``, ``proj_fold``: the modes (see the module
+    docstring); None resolves as ``cilqr_solve_pallas`` resolves it
+    (``resolve_modes``): on CUDA tensors the dot form with chunks of 4, on
+    CPU tensors all off, unless ``ILQR_PROJ_DOT``, ``ILQR_LS_CHUNK`` or
+    ``ILQR_PROJ_FOLD`` says otherwise. A mode the kernel lacks raises.
     """
     if return_alm and cfg.solve_type != "alm":
         raise ValueError("return_alm needs solve_type='alm'")
+    modes = resolve_modes(x0_b.device, proj_dot, ls_chunk, proj_fold)
     p = pack_problem(cfg, x0_b, scenario_b, window, u_init, w_back, proj_rows_per_step,
-                     alm_mu0, alm_rho0)
+                     alm_mu0, alm_rho0, modes)
     out = solve_packed(cfg, w, p, straggler_cap)
     stats = out.stats
     result = (out.u.permute(2, 1, 0), out.x.permute(2, 1, 0), SolveStats(

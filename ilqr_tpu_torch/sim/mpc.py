@@ -20,7 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ilqr_tpu_torch.ops.cuda.cilqr_kernel import W_BACK, cilqr_solve_cuda
+from ilqr_tpu_torch.ops.cuda.cilqr_kernel import W_BACK, cilqr_solve_cuda, resolve_modes
 from ilqr_tpu_torch.solvers.cilqr import solve
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
 
@@ -67,7 +67,8 @@ def run_mpc(cfg: CILQRConfig, w: CILQRWeights, setup, ticks: Optional[int] = Non
 def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo_b,
                    obs_full_b, road_borders_b, ticks: int, window: int = 512,
                    proj_rows_per_step: int = 0, w_back: int = W_BACK,
-                   return_alm: bool = False, straggler_cap=0, straggler_cap_warm=None):
+                   return_alm: bool = False, straggler_cap=0, straggler_cap_warm=None,
+                   proj_dot=None, ls_chunk=None, proj_fold=None):
     """Batched receding-horizon episodes on the fused solve.
 
     Stands for the JAX package's fused-kernel episode functions,
@@ -89,6 +90,11 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo
     every later tick (ilqr_tpu/sim/mpc.py:197-202, :266-272). Compaction
     changes no result, only how the ticks' solves are launched.
 
+    ``proj_dot``, ``ls_chunk`` and ``proj_fold`` are every tick's modes,
+    resolved once, as ``cilqr_solve_cuda`` resolves them (None: the
+    ``ILQR_*`` variables, else the device's default -- on the card the dot
+    form with chunks of 4, as the JAX package runs on its chip).
+
     Returns (ego (ticks+1, B, 4), u_hist (ticks, B, N, 2), SolveStats with a
     leading ticks axis), plus the last tick's duals (alm_mu (B, N, C0),
     alm_rho (B,)) when ``return_alm`` (ALM mode only).
@@ -96,6 +102,7 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo
     if return_alm and cfg.solve_type != "alm":
         raise ValueError("return_alm needs solve_type='alm'")
     alm = cfg.solve_type == "alm"
+    modes = resolve_modes(x0_b.device, proj_dot, ls_chunk, proj_fold)
     ego = x0_b
     u_prev = None
     duals = (None, None)
@@ -109,7 +116,7 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref_velo
             u_init = torch.cat([u_prev[:, 1:], u_prev[:, -1:]], dim=1)
         cap = straggler_cap if t == 0 or straggler_cap_warm is None else straggler_cap_warm
         kw = dict(window=window, u_init=u_init, proj_rows_per_step=proj_rows_per_step,
-                  w_back=w_back, straggler_cap=cap)
+                  w_back=w_back, straggler_cap=cap, **modes._asdict())
         if alm:
             mu0, rho0 = duals if cfg.use_last_solution else (None, None)
             u, x, st, duals = cilqr_solve_cuda(cfg, w, ego, scenario, alm_mu0=mu0,

@@ -17,7 +17,9 @@ Every tensor carries a leading scenario axis B. Per-row control flow is
 masked: an iteration runs while any row is active, and a row's state only
 changes while it is. The line search walks the alphas serially, stopping
 each row at its first hit and the loop when every row has stopped -- the
-same results as the JAX package's breadth-first search at any width.
+same results as the JAX package's breadth-first search at any width. It
+can roll its trials out in chunks of alphas (``ls_chunk``, the fused
+solve's chunked line search) with the same results, bit for bit.
 
 This solver is the port's CPU path and the float64 comparator of the CUDA
 kernel (``ops/cuda/cilqr_kernel.py``).
@@ -33,6 +35,7 @@ import torch
 from ilqr_tpu_torch.config import GlobalConfig
 from ilqr_tpu_torch.models.bicycle import kinematic_jacobians, rollout
 from ilqr_tpu_torch.ops.cost import cost_and_derivatives, total_cost
+from ilqr_tpu_torch.ops.projection import Modes
 from ilqr_tpu_torch.ops.riccati import backward_pass, forward_pass
 from ilqr_tpu_torch.types import (
     CILQRCarry,
@@ -77,40 +80,80 @@ class _LineSearchResult(NamedTuple):
     new_x: torch.Tensor
 
 
+def _forward_chunk(cfg, w, u, x, d, K, alphas):
+    """The trial rollouts of a chunk of alphas as one batched chain, the
+    chunk's axis leading: (new_u (CW, B, N, 2), new_x (CW, B, N+1, 4)).
+    Every operation is elementwise or a per-row product, and the alphas are
+    exact powers of two, so trial a is bitwise the serial rollout at
+    alphas[a]; its slice stays contiguous, so the horizon sums of its cost
+    run in the serial order too."""
+    cw, B = len(alphas), u.shape[0]
+    al = torch.tensor(alphas, dtype=u.dtype, device=u.device).repeat_interleave(B)[:, None]
+
+    def rep(t):
+        return t.repeat(cw, *(1,) * (t.dim() - 1))
+
+    nu, nx = forward_pass(rep(u), rep(x), rep(d), rep(K), al, w.dt, w.wheelbase,
+                          cfg.reference_point)
+    return nu.view(cw, *u.shape), nx.view(cw, *x.shape)
+
+
 def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
-                 alm_mu, searching, row_limits, work=None) -> _LineSearchResult:
+                 alm_mu, searching, row_limits, work=None,
+                 modes: Modes = Modes()) -> _LineSearchResult:
     """Backtracking line search (reference src/cilqr_solver.cpp:354-372) for
-    the rows in ``searching``; each row stops at its first hit."""
+    the rows in ``searching``; each row stops at its first hit.
+
+    ``modes.ls_chunk`` > 0 rolls the trials out that many alphas at a time
+    (``_forward_chunk``; alphas past the last are not rolled out) and then
+    judges them one alpha at a time in order, as the serial search does.
+    ``work["trials"]`` counts the rollouts, ``work["evals"]`` the trials
+    projected and costed, both over the rows still searching."""
     done = ~searching
     acc = torch.zeros_like(done)
     conv = torch.zeros_like(done)
     small = torch.zeros_like(done)
     best_u, best_x = u, x
-    for t, alpha in enumerate(alpha_schedule(cfg.min_alpha)):
+    alphas = alpha_schedule(cfg.min_alpha)
+    ls_chunk = modes.ls_chunk
+    width = ls_chunk or 1
+    for t0 in range(0, len(alphas), width):
         if bool(done.all()):
             break
+        chunk = alphas[t0:t0 + width]
         if work is not None:
-            work["trials"] += int((~done).sum())
-        nu, nx = forward_pass(u, x, d, K, alpha, w.dt, w.wheelbase, cfg.reference_point)
-        nJ = total_cost(cfg, w, nu, nx, scenario, alm_rho, alm_mu, row_limits)
-        decay = ori_cost - nJ
-        # the convergence check precedes the acceptance check at alpha == 1
-        # (src/cilqr_solver.cpp:358-365)
-        conv_now = ~done & (torch.abs(decay) < w.convergence_threshold)
-        if t > 0:
-            conv_now = torch.zeros_like(done)
-        approx = -(alpha * alpha * dV1 + alpha * dV2)
-        # the reference divides unguarded; accept-at-inf without NaN
-        ratio = torch.where(approx != 0, decay / approx, torch.full_like(decay, float("inf")))
-        acc_now = ~done & ~conv_now & (decay > 0) & (
-            (approx < 0) | (ratio > w.accept_step_threshold))
-        best_u = torch.where(acc_now[:, None, None], nu, best_u)
-        best_x = torch.where(acc_now[:, None, None], nx, best_x)
-        if t > 0:
-            small = small | acc_now
-        acc = acc | acc_now
-        conv = conv | conv_now
-        done = done | acc_now | conv_now
+            work["trials"] += len(chunk) * int((~done).sum())
+        if ls_chunk:
+            chunk_u, chunk_x = _forward_chunk(cfg, w, u, x, d, K, chunk)
+        for a, alpha in enumerate(chunk):
+            if a and bool(done.all()):
+                break
+            t = t0 + a
+            if work is not None:
+                work["evals"] += int((~done).sum())
+            if ls_chunk:
+                nu, nx = chunk_u[a], chunk_x[a]
+            else:
+                nu, nx = forward_pass(u, x, d, K, alpha, w.dt, w.wheelbase, cfg.reference_point)
+            nJ = total_cost(cfg, w, nu, nx, scenario, alm_rho, alm_mu, row_limits, modes)
+            decay = ori_cost - nJ
+            # the convergence check precedes the acceptance check at alpha == 1
+            # (src/cilqr_solver.cpp:358-365)
+            conv_now = ~done & (torch.abs(decay) < w.convergence_threshold)
+            if t > 0:
+                conv_now = torch.zeros_like(done)
+            approx = -(alpha * alpha * dV1 + alpha * dV2)
+            # the reference divides unguarded; accept-at-inf without NaN
+            ratio = torch.where(approx != 0, decay / approx, torch.full_like(decay, float("inf")))
+            acc_now = ~done & ~conv_now & (decay > 0) & (
+                (approx < 0) | (ratio > w.accept_step_threshold))
+            best_u = torch.where(acc_now[:, None, None], nu, best_u)
+            best_x = torch.where(acc_now[:, None, None], nx, best_x)
+            if t > 0:
+                small = small | acc_now
+            acc = acc | acc_now
+            conv = conv | conv_now
+            done = done | acc_now | conv_now
     return _LineSearchResult(acc, conv, small, best_u, best_x)
 
 
@@ -128,15 +171,18 @@ class ResumeState(NamedTuple):
 
 def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Scenario,
                         alm_rho0=None, alm_mu0=None, row_limits=None, work=None,
-                        max_iter: Optional[int] = None, resume: Optional[ResumeState] = None):
+                        max_iter: Optional[int] = None, resume: Optional[ResumeState] = None,
+                        modes: Modes = Modes()):
     """The solve loop from initial controls u0 (B, N, 2).
 
     Returns (u (B,N,2), x (B,N+1,4), SolveStats, alm_rho (B,), alm_mu (B,N,C)).
     ``alm_rho0``/``alm_mu0`` default to the reference's cold reset
     (src/cilqr_solver.cpp:88-93). A ``work`` dict gets the counts of what
-    each row needed, summed over rows: ``trials`` (line-search trials
-    evaluated) and ``dual_updates`` (ALM dual steps); the iterations are
-    in the returned stats.
+    each row needed, summed over rows: ``trials`` (line-search rollouts),
+    ``evals`` (trials projected and costed; equal to ``trials`` unless the
+    line search runs in chunks) and ``dual_updates`` (ALM dual steps); the
+    iterations are in the returned stats. ``modes`` are the fused solve's
+    projection mode and line-search chunk width (``ops/projection.py``).
 
     The loop runs iterations [0, max_iter) (``cfg.max_iter`` when None),
     or [resume.it0, max_iter) from a ``resume`` state: u0 is then the
@@ -145,8 +191,8 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     same values), so a capped solve resumed here equals one uncapped solve.
     """
     if work is not None:
-        work.setdefault("trials", 0)
-        work.setdefault("dual_updates", 0)
+        for key in ("trials", "evals", "dual_updates"):
+            work.setdefault(key, 0)
     if cfg.riccati_impl != "scan":
         raise NotImplementedError(f"riccati_impl={cfg.riccati_impl!r} is not ported")
     Bn = x0.shape[0]
@@ -180,11 +226,11 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
             break
         # the iteration's cost (== ori_cost of src/cilqr_solver.cpp:342) and
         # its derivatives from one pass
-        ori_cost, der = cost_and_derivatives(cfg, w, u, x, scenario, rho, mu, row_limits)
+        ori_cost, der = cost_and_derivatives(cfg, w, u, x, scenario, rho, mu, row_limits, modes)
         A, Bm = kinematic_jacobians(x[:, :-1], u, w.dt, w.wheelbase, cfg.reference_point)
         bw = backward_pass(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb)
         ls = _line_search(cfg, w, u, x, bw.d, bw.K, ori_cost, bw.dV1, bw.dV2, scenario,
-                          rho, mu, active & ~bw.fail, row_limits, work)
+                          rho, mu, active & ~bw.fail, row_limits, work, modes)
 
         bp_failed = active & bw.fail
         accepted = active & ~bw.fail & ls.accepted
@@ -224,7 +270,7 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
         status=status,
         converged=converged,
         lamb_overflow=overflow,
-        final_cost=total_cost(cfg, w, u, x, scenario, rho, mu, row_limits),
+        final_cost=total_cost(cfg, w, u, x, scenario, rho, mu, row_limits, modes),
         final_lamb=lamb,
     )
     return u, x, stats, rho, mu

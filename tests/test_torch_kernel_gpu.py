@@ -5,6 +5,8 @@ Imports only the port, so it runs on a GPU machine without the JAX package's
 dependencies:  python -m pytest -m gpu tests/test_torch_kernel_gpu.py -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -19,9 +21,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _packed(case, dtype, dev, B):
+def _packed(case, dtype, dev, B, modes=ck.Modes()):
+    """A ``CASES`` entry's cold problem; squared distance and serial line
+    search unless ``modes`` says otherwise."""
     name, over, wover = CASES[case]
-    return packed_cold(name, B, dtype, dev, weights=wover, **over)
+    return packed_cold(name, B, dtype, dev, weights=wover, modes=modes, **over)
+
+
+def _same_rows_close(k, r, alm, tol=1e-6):
+    """Iterations and statuses equal on >= 99% of rows, u, x and the duals
+    within ``tol`` on those rows."""
+    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
+    assert int(same.sum()) >= 0.99 * same.numel()
+    assert float((k.u - r.u).abs()[:, :, same].max()) <= tol
+    assert float((k.x - r.x).abs()[:, :, same].max()) <= tol
+    if alm:
+        assert float((k.mu - r.mu).abs()[:, :, same].max()) <= tol
+        assert float((k.rho - r.rho).abs()[same].max()) <= tol
 
 
 @pytest.mark.gpu
@@ -39,15 +55,9 @@ def test_kernel_matches_plain_on_gpu(cuda_device, case):
     torch.cuda.synchronize()
     assert ck.launches[name] == launches + 1
     r = ck.cilqr_solve_ref(cfg, w, p)
-    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
-    assert int(same.sum()) >= 0.99 * B
-    assert float((k.u - r.u).abs()[:, :, same].max()) <= 1e-6
-    assert float((k.x - r.x).abs()[:, :, same].max()) <= 1e-6
-    if cfg.solve_type == "alm":
-        assert float((k.mu - r.mu).abs()[:, :, same].max()) <= 1e-6
-        assert float((k.rho - r.rho).abs()[same].max()) <= 1e-6
-        if case == "gravity_alm_duals_move":
-            assert float(r.mu.max()) > 0 and float(r.rho.max()) > 20.0
+    _same_rows_close(k, r, cfg.solve_type == "alm")
+    if case == "gravity_alm_duals_move":
+        assert float(r.mu.max()) > 0 and float(r.rho.max()) > 20.0
 
 
 @pytest.mark.gpu
@@ -65,15 +75,19 @@ def test_float32_instantiation_runs(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("modes", [ck.Modes(), ck.Modes(False, 0, True), ck.Modes(True, 4, True)],
+                         ids=["squared", "fold", "dot_fold_ls"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("case", list(CASES))
-def test_kernel_compaction_bitwise(cuda_device, case, dtype):
+def test_kernel_compaction_bitwise(cuda_device, case, dtype, modes):
     """Straggler compaction at caps (2, 5) equals one launch bit for bit, in
-    every instantiation; the later phases go through the resume entry."""
+    every instantiation; the later phases go through the resume entry. With
+    the fold on, the resume entry folds the resumed rows again, with a
+    scratch sized and strided for the sub-batch."""
     B = 200
-    cfg, w, p = _packed(case, dtype, cuda_device, B)
+    cfg, w, p = _packed(case, dtype, cuda_device, B, modes)
     one = ck.cilqr_solve_kernel(cfg, w, p)
-    resume = ck.variant(cfg, dtype) + "_resume"
+    resume = ck.variant(cfg, dtype, modes) + "_resume"
     before = ck.launches[resume]
     comp = ck.solve_packed(cfg, w, p, (2, 5))
     torch.cuda.synchronize()
@@ -95,14 +109,7 @@ def test_kernel_resume_matches_plain_f64(cuda_device, case):
     assert rows.numel() > 0
     sub = ck.resume_problem(p, first, rows, 5)
     k = ck.cilqr_solve_kernel(cfg, w, sub)
-    r = ck.cilqr_solve_ref(cfg, w, sub)
-    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
-    assert int(same.sum()) >= 0.99 * rows.numel()
-    assert float((k.u - r.u).abs()[:, :, same].max()) <= 1e-6
-    assert float((k.x - r.x).abs()[:, :, same].max()) <= 1e-6
-    if cfg.solve_type == "alm":
-        assert float((k.mu - r.mu).abs()[:, :, same].max()) <= 1e-6
-        assert float((k.rho - r.rho).abs()[same].max()) <= 1e-6
+    _same_rows_close(k, ck.cilqr_solve_ref(cfg, w, sub), cfg.solve_type == "alm")
 
 
 @pytest.mark.gpu
@@ -131,3 +138,42 @@ def test_debug_repro_kernels_bitwise(cuda_device, repro):
     assert sum(dr.launches.values()) - before == (2 if repro == "dataflow" else 1)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# the projection modes (ilqr_tpu/ops/pallas/cilqr_kernel.py:267, :368), with
+# chunks of 4 (:844), as the card resolves them
+MODES = {"dot": ck.Modes(True, 4, False), "fold": ck.Modes(False, 4, True),
+         "dot_fold": ck.Modes(True, 4, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_modes_match_plain_on_gpu(cuda_device, case, mode):
+    """Each projection mode of the double kernel against the double plain
+    version in the same mode, under the gate of the squared distance; one
+    launch counted, under the mode's name."""
+    cfg, w, p = _packed(case, torch.float64, cuda_device, 200, MODES[mode])
+    name = ck.variant(cfg, torch.float64, p.modes)
+    assert name.endswith(f"_{mode}_ls")
+    launches = ck.launches[name]
+    k = ck.cilqr_solve_kernel(cfg, w, p)
+    torch.cuda.synchronize()
+    assert ck.launches[name] == launches + 1
+    _same_rows_close(k, ck.cilqr_solve_ref(cfg, w, p), cfg.solve_type == "alm")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_chunked_line_search_bitwise(cuda_device, case, dtype):
+    """Chunks of 3, 4 and 8 alphas equal the serial line search bit for bit
+    (dot form on), also with compaction at (2, 5)."""
+    cfg, w, p = _packed(case, dtype, cuda_device, 200, ck.Modes(proj_dot=True))
+    serial = ck.cilqr_solve_kernel(cfg, w, p)
+    for width in (3, 4, 8):
+        pc = dataclasses.replace(p, modes=ck.Modes(True, width, False))
+        for out in (ck.cilqr_solve_kernel(cfg, w, pc), ck.solve_packed(cfg, w, pc, (2, 5))):
+            for a, b in zip(serial, out):
+                assert (a is None and b is None) or torch.equal(a, b)
+
