@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``ilqr_tpu_torch``) on one GPU.
 
-Builds the fused CILQR kernel (every instantiation: float32/float64 x rear/
-gravity center x barrier/ALM, each with its resume entry; the projection
-modes and the line search's chunk width are runtime arguments) and the
-``tools/debug`` repro kernels from this checkout's sources, one nvcc per
-source, started together; holds every kernel against its plain PyTorch
-version, and drives the port's paths through it with ``run_mpc_kernel``,
+Builds the fused CILQR kernel (a warp per scenario; every instantiation:
+float32/float64 x rear/gravity center x barrier/ALM, each with its resume
+entry; the projection modes and the line search's chunk width are runtime
+arguments), the thread-per-scenario kernel it replaced (for comparison
+only) and the ``tools/debug`` repro kernels from this checkout's sources,
+one nvcc per source, started together; holds every kernel against its
+plain PyTorch version, and drives the port's paths through it with
+``run_mpc_kernel``,
 float32, batch 8192 perturbed starts (seed 0), in the modes the card
 resolves (``ck.resolve_modes``: the dot-form projection and chunks of 4
 alphas, as the JAX package ran its main path on its chip):
@@ -35,12 +37,15 @@ Phases, one printed line each; any failure raises, so the script exits
 non-zero and prints no final line:
 
 0. environment: torch / CUDA versions, the card's name and power limit,
-   nvcc and triton presence, the kernels' build time and each
-   instantiation's registers, stack and spills from ptxas;
+   nvcc and triton presence, the kernels' build time, each instantiation's
+   registers, stack and spills from ptxas (the warp kernel's and the
+   thread kernel's), and the main path's launch plan with its resident
+   scenarios per SM;
 1. float64 semantics, batch 256, cold: each double instantiation against
    ``cilqr_solve_ref`` in double on the card, in the same modes -- iters
    and status equal on >= 99% of rows, u, x (and the duals) within 1e-6
-   on those rows: rear/barrier (two_straight), gravity/barrier
+   on those rows, and the same gate against the thread kernel on the same
+   inputs: rear/barrier (two_straight), gravity/barrier
    (two_borrow), rear/ALM (two_straight), gravity/ALM (two_borrow), each
    with the squared distance and the serial line search, and with the dot
    form, the fold and both (chunks of 4); gravity/ALM with moving duals
@@ -66,7 +71,8 @@ non-zero and prints no final line:
    difference < 1e-2): the float32 kernels' times; on the main path's
    shape also the squared distance and the serial line search (the
    configurations of phase 6; each serial kernel against the serial plain
-   version, and bitwise equal to its chunked kernel) and the fold; on the
+   version, and bitwise equal to its chunked kernel), the fold, and the
+   thread kernel in the card's modes and squared / serial; on the
    paths with a schedule,
    the resume entry's time at the shape of the second phase (the kernel's
    solve capped at 8 iterations, its stragglers resumed to 16) against the
@@ -94,14 +100,20 @@ non-zero and prints no final line:
    the phase 1 three_bend case, whose duals move);
 6. the main path under four configurations -- squared distance / serial,
    dot form / serial, squared distance / chunks of 4, dot form / chunks of
-   4 -- in the order ABCD DCBA: episode wall time and per-tick kernel ms
-   (CUDA events around each launch; sum, p50, p90, max); the chunked runs
-   bitwise equal to the serial ones of the same projection; then the card's
-   default configuration once more under ``torch.profiler``: the device's
-   busy time and idle share;
+   4 -- in the order ABCD DCBA, and in A and D also through the thread
+   kernel (A: warp then thread, D: warp then thread; mirrored in DCBA):
+   episode wall time and per-tick kernel ms (CUDA events around each
+   launch; sum, p50, p90, max, tick 0) of each pair, the warp kernel
+   faster than the thread kernel in every pair of D and both at 52.70 m;
+   the chunked runs bitwise equal to the serial ones of the same
+   projection; then the card's default configuration once more under
+   ``torch.profiler``: the device's busy time and idle share;
 7. the ``tools/debug`` repro kernels: each flow once with the counts at 0,
    then each kernel bitwise equal to its plain version and to the repro's
-   closed form, with its time, the plain version's and the library call's.
+   closed form, with its time per call (200 calls between CUDA events,
+   the launch path included), its device time (``torch.profiler``'s
+   device spans of 200 calls) and the same two for the plain version and
+   the library call.
 
 Cut to stay under eight minutes: the off/on/on/off compaction timing of the
 main path and path (a) is gone, so path (a) runs twice instead of
@@ -119,6 +131,7 @@ the repro kernels), and ``{"ok": true, "device": {...}}``.
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -316,7 +329,9 @@ def phase_env():
 
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda.is_available() is false)")
     import ilqr_tpu_torch
+    from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel_thread as ckt
     from ilqr_tpu_torch.ops.cuda import debug_repros as dr
 
     check(Path(ilqr_tpu_torch.__file__).resolve().is_relative_to(REPO),
@@ -324,21 +339,33 @@ def phase_env():
     line = gpu_line()
     print(line, flush=True)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = [pool.submit(ck.load_library), pool.submit(dr.load_library)]
-        (_, log), (_, repro_log) = (b.result() for b in builds)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        builds = [pool.submit(f) for f in (ck.load_library, ckt.load_library, dr.load_library)]
+        (_, log), (_, thread_log), (_, repro_log) = (b.result() for b in builds)
     build_s = time.perf_counter() - t0
     ptxas = ptxas_summary(log, solve_kernel_name)
-    check(len(ptxas) == 8 and all(len(v) == 4 for v in ptxas.values()),
-          f"ptxas summary incomplete: {ptxas}")
+    thread_ptxas = ptxas_summary(thread_log, solve_kernel_name)
+    for tag, summary in (("", ptxas), (" of the thread kernel", thread_ptxas)):
+        check(len(summary) == 8 and all(len(v) == 4 for v in summary.values()),
+              f"ptxas summary{tag} incomplete: {summary}")
+    for name, v in ptxas.items():  # the warp kernel keeps its state on chip
+        if name.startswith("cilqr_solve_f32"):
+            check(v["spill_stores"] == 0 and v["stack"] < 1024, f"{name}: ptxas {v}")
     repro_ptxas = ptxas_summary(repro_log, repro_kernel_name)
     check(len(repro_ptxas) == 4 and all(len(v) == 4 for v in repro_ptxas.values()),
           f"ptxas summary of the repro kernels incomplete: {repro_ptxas}")
+    # the main path's launch plan at batch 8192 in the card's modes, and
+    # the scenarios registers and shared memory let one SM hold
+    cfg, _, p = vk.packed_cold(PATHS["main"][0], 8, modes=ck.resolve_modes(DEVICE))
+    plan = ck.launch_plan(BATCH, cfg.N, p.ox.shape[0], max(p.row_limits), torch.float32, p.modes)
+    main_plan = dict(grid=plan.grid, block=plan.block, shared_bytes=plan.shared_bytes,
+                     resident_scenarios_per_sm=ck.resident_scenarios(cfg, torch.float32, plan))
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         nvidia_smi=line, nvcc=shutil.which("nvcc") or ck._nvcc(),
         triton=importlib.util.find_spec("triton") is not None,
-        build_seconds=round(build_s, 3), ptxas=ptxas, repro_ptxas=repro_ptxas)
+        build_seconds=round(build_s, 3), ptxas=ptxas, thread_kernel_ptxas=thread_ptxas,
+        repro_ptxas=repro_ptxas, main_path_plan=main_plan)
     return line, ptxas
 
 
@@ -360,6 +387,18 @@ def with_modes(p, proj_dot=False, ls_chunk=0, proj_fold=False):
     return dataclasses.replace(p, modes=ck.Modes(proj_dot, ls_chunk, proj_fold))
 
 
+def differences(k, r, alm):
+    """Rows of equal iterations and statuses in two ``PackedSolution``s,
+    and the largest differences of u, x (and the duals) on them."""
+    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
+    errs = {"u": float((k.u - r.u).abs()[:, :, same].max()),
+            "x": float((k.x - r.x).abs()[:, :, same].max())}
+    if alm:
+        errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
+        errs["rho"] = float((k.rho - r.rho).abs()[same].max())
+    return same, errs
+
+
 def against_plain(cfg, w, p, reps):
     """The kernel (mean ms of ``reps`` launches after a warm-up) and the
     plain version (host clock, synchronised) on the same packed problem:
@@ -375,16 +414,11 @@ def against_plain(cfg, w, p, reps):
     r = ck.cilqr_solve_ref(cfg, w, p, work=work)
     torch.cuda.synchronize()
     ms_r = (time.perf_counter() - t0) * 1e3
-    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
-    errs = {"u": float((k.u - r.u).abs()[:, :, same].max()),
-            "x": float((k.x - r.x).abs()[:, :, same].max())}
-    if cfg.solve_type == "alm":
-        errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
-        errs["rho"] = float((k.rho - r.rho).abs()[same].max())
+    same, errs = differences(k, r, cfg.solve_type == "alm")
     work["iters"] = int(r.stats[0].sum())
     rec = dict(variant=ck.variant(cfg, p.x0.dtype, p.modes), cfg=cfg, dtype=p.x0.dtype,
                err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
-               shape=shape_of(cfg, p), same=same)
+               shape=shape_of(cfg, p), same=same, plain_solution=r)
     return k, r, rec
 
 
@@ -425,12 +459,7 @@ def resume_measure(cfg, w, p, caps, reps):
     r = ck.cilqr_solve_ref(cfg, w, sub, work=work, max_iter=caps[1])
     torch.cuda.synchronize()
     ms_r = (time.perf_counter() - t0) * 1e3
-    same = (k.stats[0] == r.stats[0]) & (k.stats[1] == r.stats[1])
-    errs = {"u": float((k.u - r.u).abs()[:, :, same].max()),
-            "x": float((k.x - r.x).abs()[:, :, same].max())}
-    if cfg.solve_type == "alm":
-        errs["mu"] = float((k.mu - r.mu).abs()[:, :, same].max())
-        errs["rho"] = float((k.rho - r.rho).abs()[same].max())
+    same, errs = differences(k, r, cfg.solve_type == "alm")
     work["iters"] = int((r.stats[0] - caps[0]).sum())  # the iterations this phase ran
     return dict(variant=ck.variant(cfg, dtype, p.modes) + "_resume", cfg=cfg, dtype=dtype,
                 err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
@@ -457,15 +486,22 @@ def phase_semantics_f64(case, batch=256):
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel_thread as ckt
 
     name, over, wover = vk.CASES[case]
     cfg, w, p = vk.packed_cold(name, batch, torch.float64, weights=wover, modes=ck.Modes(),
                                **over)
     card = ck.resolve_modes(DEVICE)
     p_card = dataclasses.replace(p, modes=card)
-    # squared distance, serial line search
-    _, r, base = against_plain(cfg, w, p, reps=1)
+    # squared distance, serial line search; and the thread kernel on the
+    # same inputs, under the same gate
+    k, r, base = against_plain(cfg, w, p, reps=1)
     f64_gate(case, base, batch)
+    same_t, errs_t = differences(k, ckt.solve(cfg, w, p), cfg.solve_type == "alm")
+    vs_thread = dict(iters_status_equal=int(same_t.sum()),
+                     **{f"max_abs_err_{key}": v for key, v in errs_t.items()})
+    check(int(same_t.sum()) >= 0.99 * batch and max(errs_t.values()) <= 1e-6,
+          f"{case}: f64 warp kernel vs thread kernel: {vs_thread}")
     # the modes: dot form, fold, both; chunks of 4 (bitwise the serial line
     # search, below), which also speeds up the plain version
     modes, records, sols = {}, [base], {}
@@ -492,7 +528,8 @@ def phase_semantics_f64(case, batch=256):
         fold_comp[tag] = compaction_bitwise(cfg, w, pm, fold_one, F64_CAPS)
     res = resume_measure(cfg, w, p_card, F64_CAPS, reps=1)
     fields = dict(**brief(base), scenario=name, batch=batch, rows=batch, tol=1e-6,
-                  mean_iters=float(r.stats[0].mean()), modes_against_plain=modes,
+                  mean_iters=float(r.stats[0].mean()), against_thread_kernel=vs_thread,
+                  modes_against_plain=modes,
                   chunk_bitwise_serial=chunks, card_modes=card._asdict(),
                   compaction_bitwise={str(c): b[0] for c, b in comp.items()},
                   compaction_resume_launches={str(c): b[1] for c, b in comp.items()},
@@ -580,6 +617,7 @@ def phase_f32_path_shape(path, batch=BATCH):
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel_thread as ckt
 
     name, over, _ = PATHS[path]
     over = dict(over)
@@ -611,6 +649,22 @@ def phase_f32_path_shape(path, batch=BATCH):
             extra[tag] = dict(kernel_ms=serial["ms"], plain_ms=serial["plain_ms"],
                               plain_work=serial["work"], bitwise_chunked=equal,
                               cost_relerr_p90=f_serial["cost_relerr_p90"])
+        # the thread kernel on the same inputs, in the card's modes and in
+        # squared distance / serial (phase 6's D and A), against the plain
+        # version and the warp kernel
+        thread = {}
+        for rec_w in [r for r in records if r["shape"]["modes"] in (card, ck.Modes())]:
+            pm = dataclasses.replace(p, modes=rec_w["shape"]["modes"])
+            ms_t, k_t = vk.time_ms(lambda: ckt.solve(cfg, w, pm), reps=3)
+            same_t, errs_t = differences(k_t, rec_w["plain_solution"], False)
+            rec_t = dict(rec_w, variant=rec_w["variant"] + "_thread", ms=ms_t,
+                         err=max(errs_t.values()), errs=errs_t, same=same_t)
+            records.append(rec_t)
+            thread[rec_w["variant"]] = dict(warp_ms=rec_w["ms"], thread_ms=ms_t,
+                                            thread_over_warp=ms_t / rec_w["ms"],
+                                            thread_iters_status_equal_plain=int(same_t.sum()),
+                                            thread_max_abs_err_plain=max(errs_t.values()))
+        extra["thread_kernel"] = thread
     res = resume_measure(cfg, w, p, COLD_CAPS, reps=3) if path in SCHEDULES else None
     resume = {} if res is None else dict(resume={
         key: res[key] for key in ("variant", "rows", "it0", "max_iter", "iters_status_equal",
@@ -766,12 +820,49 @@ def profile_run(fn):
                 top_device_ms=dict(by_name.most_common(6)))
 
 
+def device_ms(fn, reps):
+    """Mean device milliseconds a call of ``fn`` takes over ``reps`` calls
+    after a warm-up: the device spans (kernels, copies, fills) that
+    ``torch.profiler`` records, summed, without the host's launch path."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(spans, "the profiler recorded no device activity")
+    return sum(spans) / 1e3 / reps
+
+
 def stats_ms(values):
     import numpy as np
 
     v = np.asarray(values, dtype=float)
     return dict(sum=float(v.sum()), mean=float(v.mean()), p50=float(np.percentile(v, 50)),
                 p90=float(np.percentile(v, 90)), max=float(v.max()))
+
+
+class ThreadKernel:
+    """Routes ``ck.cilqr_solve_kernel`` to the thread-per-scenario kernel
+    inside the block (the comparison runs of phase 6), its launches counted
+    in ``ckt.launches``."""
+
+    def __enter__(self):
+        from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+        from ilqr_tpu_torch.ops.cuda import cilqr_kernel_thread as ckt
+
+        self._ck, self._launch = ck, ck.cilqr_solve_kernel
+        ckt.launches.clear()
+        ck.cilqr_solve_kernel = ckt.solve
+        return ckt.launches
+
+    def __exit__(self, *exc):
+        self._ck.cilqr_solve_kernel = self._launch
 
 
 def path_gates(path, card, cfg, out, total, launches, inputs, tag):
@@ -837,9 +928,10 @@ def compaction_run(path, card, out, variant, launches_total):
 
 def phase_main(card, launches_total):
     """3 and 6: the main path in four configurations, ABCD DCBA, each run
-    gated as phase 3 and timed; the chunked runs bitwise equal to the
-    serial ones; then the card's default with the schedule (bitwise equal),
-    with the fold, and profiled."""
+    gated as phase 3 and timed, and in A and D the thread kernel beside the
+    warp kernel (gated alike, its launches its own); the chunked runs
+    bitwise equal to the serial ones; then the card's default with the
+    schedule (bitwise equal), with the fold, and profiled."""
     import torch
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 
@@ -847,28 +939,61 @@ def phase_main(card, launches_total):
     card_modes = ck.resolve_modes(DEVICE)
     configs = {"A": ck.Modes(False, 0, False), "B": ck.Modes(True, 0, False),
                "C": ck.Modes(False, 4, False), "D": ck.Modes(True, 4, False)}
+    compared = ("A", "D")  # the configurations the thread kernel runs too
+    order = [(key, kernel) for i, key in enumerate("ABCDDCBA")
+             for kernel in (("warp", "thread") if i < 4 else ("thread", "warp"))
+             if kernel == "warp" or key in compared]
     runs = []
-    for key in "ABCDDCBA":
-        with LaunchTimer() as timer:
+    for key, kernel in order:
+        with contextlib.ExitStack() as stack:
+            thread_launches = stack.enter_context(ThreadKernel()) if kernel == "thread" else None
+            timer = stack.enter_context(LaunchTimer())
             cfg, out, total, launches, inputs = run_path(name, over, torch.float32, BATCH, ticks,
                                                          modes=configs[key])
-        launches_total.update(launches)
-        variant = path_gates("main", card, cfg, out, total, launches, inputs, f"_{key}")
-        runs.append(dict(key=key, out=out, total=total, kernel_ms=timer.kernel_ms(),
-                         variant=variant))
-    first = {r["key"]: r for r in reversed(runs)}  # the first run of each configuration
+            if thread_launches is not None:
+                launches = dict(thread_launches)
+        if kernel == "warp":
+            launches_total.update(launches)
+        variant = path_gates("main", card, cfg, out, total, launches, inputs,
+                             f"_{key}" + ("_thread" if kernel == "thread" else ""))
+        runs.append(dict(key=key, kernel=kernel, out=out, total=total,
+                         kernel_ms=timer.kernel_ms(), variant=variant))
+    warp_runs = [r for r in runs if r["kernel"] == "warp"]
+    first = {r["key"]: r for r in reversed(warp_runs)}  # the first run of each configuration
     chunk_equal = {"C=A": episodes_equal(first["C"]["out"], first["A"]["out"]),
                    "D=B": episodes_equal(first["D"]["out"], first["B"]["out"])}
     default = next(k for k, m in configs.items() if m == card_modes)
     prof = profile_run(lambda: run_path(name, over, torch.float32, BATCH, ticks))
+
+    def summary(r):
+        return dict(episode_s=r["total"], kernel_ms=stats_ms(r["kernel_ms"]),
+                    tick0_kernel_ms=r["kernel_ms"][0],
+                    final_ego_x_mean=float(r["out"][0][-1, :, 0].mean()))
+
+    # each pair: a configuration's warp and thread runs, in run order
+    pairs = []
+    for key in compared:
+        warp = [r for r in runs if r["key"] == key and r["kernel"] == "warp"]
+        thread = [r for r in runs if r["key"] == key and r["kernel"] == "thread"]
+        for i, (rw, rt) in enumerate(zip(warp, thread)):
+            pairs.append(dict(config=key, pair=i, warp=summary(rw), thread=summary(rt),
+                              thread_over_warp_episode=rt["total"] / rw["total"],
+                              thread_over_warp_kernel_ms=(sum(rt["kernel_ms"])
+                                                          / sum(rw["kernel_ms"]))))
     say("phase6_modes_timing_main", card=card, scenario=name, ticks=ticks,
-        configs={k: m._asdict() for k, m in configs.items()}, order=[r["key"] for r in runs],
-        variants=[r["variant"] for r in runs], episode_s=[r["total"] for r in runs],
-        kernel_ms_per_tick=[stats_ms(r["kernel_ms"]) for r in runs],
-        tick0_kernel_ms=[r["kernel_ms"][0] for r in runs],
-        final_ego_x_mean=[float(r["out"][0][-1, :, 0].mean()) for r in runs],
+        configs={k: m._asdict() for k, m in configs.items()},
+        order=[f"{r['key']}_{r['kernel']}" for r in runs],
+        variants=[r["variant"] for r in warp_runs], episode_s=[r["total"] for r in warp_runs],
+        kernel_ms_per_tick=[stats_ms(r["kernel_ms"]) for r in warp_runs],
+        tick0_kernel_ms=[r["kernel_ms"][0] for r in warp_runs],
+        final_ego_x_mean=[float(r["out"][0][-1, :, 0].mean()) for r in warp_runs],
         chunk_bitwise_serial=chunk_equal, card_default=default, profiled_default=prof)
+    say("phase6_warp_vs_thread_main", card=card, scenario=name, ticks=ticks, pairs=pairs)
     check(all(chunk_equal.values()), f"main: chunked episodes differ from serial: {chunk_equal}")
+    for pair in pairs:
+        if pair["config"] == default:
+            check(pair["warp"]["episode_s"] < pair["thread"]["episode_s"],
+                  f"main {default}: the warp kernel is not faster than the thread kernel: {pair}")
     compaction_run("main", card, first[default]["out"], first[default]["variant"], launches_total)
     # the fold, composed with the card's modes (ILQR_PROJ_FOLD=1 in the JAX package)
     cfg, out, total, launches, inputs = run_path(name, over, torch.float32, BATCH, ticks,
@@ -1028,6 +1153,9 @@ def phase_debug_repros(card):
         ms, _ = vk.time_ms(kernel, reps)
         plain_ms, _ = vk.time_ms(ref, reps)
         lib_ms = vk.time_ms(lib, reps)[0] if lib else None
+        # the same calls' device time, without the launch path
+        dev_ms = device_ms(kernel, reps)
+        lib_dev_ms = device_ms(lib, reps) if lib else None
         replaces_, rows, ops = REPROS[name]
         t_bytes = rows * dr.BP * 4 / PEAK_BYTES * 1e3
         t_ops = ops * dr.BP / PEAK_OPS["f32"] * 1e3
@@ -1035,7 +1163,8 @@ def phase_debug_repros(card):
             "name": name, "route": "cuda", "source": REPRO_SOURCE, "replaces": replaces_,
             "launches": launches[name], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "batch": dr.BP})
+            "library_ms": lib_ms, "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+            "batch": dr.BP})
     say("phase7_debug_repros", card=card, launches=launches, bitwise_plain=True,
         closed_form=closed, kernels=kernels)
     return kernels

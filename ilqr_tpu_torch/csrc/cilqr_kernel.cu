@@ -1,4 +1,5 @@
-// Fused CILQR solve for NVIDIA Hopper (sm_90a): one thread per scenario.
+// Fused CILQR solve for NVIDIA Hopper (sm_90a): one warp per scenario, lane
+// k owning horizon step k.
 //
 // Replaces the Pallas TPU kernel of ilqr_tpu/ops/pallas/cilqr_kernel.py: the
 // `kernel` built by `_build_kernel` (:80-1222) and launched by `call_kernel`
@@ -11,55 +12,79 @@
 // (squared distance or the centred dot form `proj_dot`, :267-286, :364-367,
 // :433-434; first minimum or the pair-fold tournament `proj_fold`,
 // :368-399), and the resume entry of straggler compaction (:97-105,
-// :1156-1168: restart at iteration it0 from a stats slab). It computes what that kernel computes (reference
-// semantics: src/cilqr_solver.cpp:85-461 of the C++ project), not its
-// TPU layout: each thread walks the reference's loop shape over its own
-// scenario, with trajectory, gains and projection in per-thread arrays.
+// :1156-1168: restart at iteration it0 from a stats slab). It computes what
+// that kernel computes (reference semantics: src/cilqr_solver.cpp:85-461 of
+// the C++ project), not its TPU layout.
 //
-// What bounds it on this card: each solve is a serial dependent chain of
-// roughly 1e5-1e6 flops (the window scan of every line-search trial is the
-// largest term), and the per-thread arrays live in local memory. The main
-// path's 8192 scenarios at 128 threads per block are 64 blocks on 132 SMs,
-// so latency and occupancy bound it, not bytes; and a block waits for its
-// slowest scenario. Compaction of unfinished scenarios between launches
-// (the resume entry) cannot shorten that slowest chain when the whole batch
-// is resident at once; it is exact, and off by default. Later work: smaller
-// blocks, a warp per scenario for the window scan.
+// Design. A solve is a chain of dependent iterations, and its work splits
+// into what is independent across the horizon (the window scan of every
+// projection, ~80% of a trial's operations; the cost terms; the cost
+// derivatives and dynamics Jacobians; the dual update) and what is serial
+// over it (the rollouts, the Riccati recursion). So a warp owns a scenario:
+// lane k (N + 1 <= 32 lanes) projects, costs and differentiates step k, and
+// a horizon sum is one fixed shuffle tree (`warp_sum`). The Riccati
+// recursion runs redundantly in every lane on the shared state (no
+// divergence, no broadcast), lane 0 storing the gains; a rollout runs in
+// one lane (the initial one in lane 0, a line-search chunk's alphas one
+// per lane). The solve's state lives in
+// dynamic shared memory, the block's one region (`warp_floats`; `Ctx::cur()`
+// and the other accessors): the current trajectory, the gains, the
+// per-step derivatives, the chunk's trials, the obstacle predictions (with
+// the cosine and sine of their yaw, computed once per solve) and the
+// searched window rows, staged once per solve; the lanes of a scan read
+// one broadcast address per row. Control flow is uniform across the warp
+// outside the per-lane and per-chain sections, so no block or warp ever
+// waits on another. One warp a block: a finished scenario hands its slot
+// to the next at once (faster than 2 or 4 a block, and the staged window
+// faster than scanning device memory, at the main path's shape; PERF.md).
 //
-// Layout: every input and output array is scenario-fastest ([row][B]), so
-// neighbouring threads read neighbouring addresses. See
-// ilqr_tpu_torch/ops/cuda/cilqr_kernel.py for the packing and the plain
-// PyTorch version of the same function.
+// What bounds it on this card: the latency of one scenario's dependent
+// chain -- per iteration the Riccati recursion (~450 operations a step, 30
+// steps) and per trial a rollout (30 steps) and the longest lane's window
+// scan (max row limit, 312 rows on the main path) -- and, across the
+// batch, issue slots: scenarios resident per SM are bounded by registers
+// and shared bytes, and the tick waits for its slowest scenario. Bytes are
+// not the limit: each scenario reads its inputs once.
 //
-// Built without fast-math; the scalar type, the reference point and the
-// penalty family are template parameters: float is the production type,
-// double exists to check semantics against the plain version without
-// float32 chaos. The rear-center barrier instantiation is the code of the
-// first port (the variant branches are `if constexpr`). The projection
-// modes and the line search's chunk width are warp-uniform runtime
-// arguments, the projection's branched outside the window-row loop.
+// Layout: every input and output array is scenario-fastest ([row][B]), as
+// the plain version packs them. See ilqr_tpu_torch/ops/cuda/cilqr_kernel.py
+// for the packing, the launch plan (the grid, and the shared bytes this
+// file's `warp_floats` counts) and the plain PyTorch version of the same
+// function.
+//
+// Built without fast-math and with -fmad=false (ops/cuda/cilqr_kernel.py,
+// KERNEL_FLAGS): every product and sum rounds on its own, as the plain
+// version's do, whatever the inlining context. The scalar type, the
+// reference point and the penalty family are template parameters: float is
+// the production type, double exists to check semantics against the plain
+// version without float32 chaos. The projection modes and the line search's
+// chunk width are warp-uniform runtime arguments.
+//
+// Bitwise guarantees and what carries them:
+// - chunked line search = serial: a chunk's chain a runs in lane a the
+//   instructions chain 0 runs in lane 0, so a trial's bits do not depend on
+//   its place in a chunk, and the chains of a chunk run in parallel;
+// - compaction = one launch: the resume entry rolls out the carried
+//   controls with the `propagate` a trial used and costs them with the one
+//   `total_cost` (the same per-lane terms, the same shuffle tree), and
+//   without FMA contraction the separately inlined copies of each round
+//   alike (with it, float64 ALM compaction differed from one launch on the
+//   card);
+// - window scores are rounded op by op (`__fmul_rn`, `__fadd_rn`) in both
+//   projection modes, so a lane's first minimum is the same function of the
+//   same bits in any build. The dot form cancels (a score is |r - q|^2 -
+//   |q - r0|^2): contracted into FMAs its near-ties broke otherwise than the
+//   plain version's (three_bend ALM, first tick: cost p90 1.5e-3 against
+//   5e-6 with the squared distance, on the card).
 //
 // The modes on this card:
-// - dot form: the TPU hoisted three window slabs once per solve; here the
-//   wrapper computes them once per launch as three (W, B) arrays (p_cr,
-//   p_nx, p_ny), so a row costs 3 loads, 2 products and 2 sums against the
-//   squared distance's 2 loads, 2 differences, a product and an FMA;
-// - fold: the tournament keeps ceil(R/2) scores and row indices in a
-//   (rows, B) scratch the wrapper allocates, not on the thread's stack,
-//   which every mode would then carry (~2.5 KB at R <= 312);
-// - chunked line search: a thread has no sublanes to pack trials into.
-//   Up to kMaxChunk rollout chains advance in one loop over the horizon,
-//   reading the gains and the current trajectory once for all of them.
-//   A trial is projected and costed in place in the chunk, and copied
-//   into the current trajectory only when it is adopted.
-//   The serial search is the chunked one at width 1, and the loop over a
-//   chunk's chains is not unrolled, so every trial of every width runs the
-//   same instructions: that is what makes a chunk bitwise the serial
-//   search. Two separately compiled kernels are not enough: nvcc contracts
-//   multiply-adds differently in each (a float64 ALM build with the chunk
-//   as a template flag differed from the serial build on the card). So the
-//   chains run one after another and the chunk buys no instruction-level
-//   parallelism; it costs the stack of kMaxChunk rollouts in every mode.
+// - dot form: the wrapper computes the three window terms once per launch as
+//   (W, B) arrays (p_cr, p_nx, p_ny), staged like the squared distance's
+//   two; a row costs 3 shared loads, 2 products and 2 sums;
+// - fold: each lane's tournament keeps ceil(R/2) scores and row indices in a
+//   (slot, step, scenario) global scratch the wrapper allocates;
+// - chunked line search: chain a in lane a, trials judged in alpha order by
+//   the whole warp.
 
 #include <cuda_runtime.h>
 
@@ -67,9 +92,10 @@
 
 namespace {
 
-constexpr int kMaxSteps = 32;  // N + 1 <= kMaxSteps
-constexpr int kBlock = 128;
+constexpr int kWarp = 32;
+constexpr int kMaxSteps = kWarp;  // N + 1 <= kMaxSteps: lane k owns step k
 constexpr int kMaxChunk = 8;  // widest line-search chunk
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Status {
   kRunning = 0,
@@ -111,10 +137,10 @@ struct Problem {
   const T* __restrict__ pcr;
   const T* __restrict__ pnx;
   const T* __restrict__ pny;
-  T* __restrict__ fold_s;       // (ceil(max row limit / 2), B) fold scratch (proj_fold)
+  T* __restrict__ fold_s;       // (ceil(R / 2), N+1, B) fold scratch (proj_fold)
   int* __restrict__ fold_i;
-  int B, N, M, W, max_iter, n_alphas;
-  int proj_dot, proj_fold, ls_chunk;  // ls_chunk: the chunk width, 0 (serial) to kMaxChunk
+  int B, N, M, W, R, max_iter, n_alphas;  // R: the largest row limit, rows staged
+  int proj_dot, proj_fold, ls_chunk;      // ls_chunk: the chunk width, 0 (serial) to kMaxChunk
 };
 
 // ALM arguments: the duals in and out, C = 8 + 2M columns, and the
@@ -128,8 +154,7 @@ struct AlmArgs {
   T gamma, max_rho, max_mu;
 };
 
-// Per-solve ALM state: empty in the barrier builds, so their per-thread
-// context is the first port's, byte for byte.
+// Per-solve ALM state: empty in the barrier builds.
 template <typename T, bool kAlm>
 struct AlmState {};
 
@@ -138,6 +163,37 @@ struct AlmState<T, true> {
   AlmArgs<T> a;
   T rho;  // the penalty weight
 };
+
+// Shared memory of one warp, in scalars: the fields of `Smem`, each of
+// N + 1 steps unless noted. The wrapper's launch plan counts the same.
+constexpr int kTrajFields = 9;   // ua, us, px, py, pv, ph, rx, ry, rh
+constexpr int kGainFields = 10;  // K (2 x 4, row-major), d (2)
+constexpr int kDerivFields = 15; // lx (4), lxx 00 01 03 11 13 22 33, lu (2), luu00, luu11
+constexpr int kJacFields = 8;    // a02, a03, a12, a13, a32, b01, b11, b31
+constexpr int kTrialFields = 6;  // ua, us, px, py, pv, ph of each chain
+constexpr int kObsFields = 4;    // x, y, cos(yaw), sin(yaw) of each obstacle
+__host__ __device__ constexpr int window_fields(int proj_dot) { return proj_dot ? 3 : 2; }
+
+__host__ __device__ inline long warp_floats(int N, int M, int R, int chunk, int proj_dot) {
+  const long S = N + 1;
+  const long m = chunk > 0 ? chunk : 1;
+  return S * (kTrajFields + kGainFields + kDerivFields + kJacFields + kTrialFields * m +
+              kObsFields * (long)M) +
+         (long)window_fields(proj_dot) * R;
+}
+
+// bytes of one warp's region, a block's dynamic shared memory, rounded up to
+// a multiple of 16
+template <typename T>
+inline long warp_bytes(int N, int M, int R, int chunk, int proj_dot) {
+  return (warp_floats(N, M, R, chunk, proj_dot) * (long)sizeof(T) + 15) / 16 * 16;
+}
+
+template <typename T>
+__device__ __forceinline__ T* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw);
+}
 
 __device__ __forceinline__ float sin_(float a) { return sinf(a); }
 __device__ __forceinline__ double sin_(double a) { return sin(a); }
@@ -156,51 +212,113 @@ __device__ __forceinline__ double hypot_(double a, double b) { return hypot(a, b
 __device__ __forceinline__ int rint_(float a) { return __float2int_rn(a); }
 __device__ __forceinline__ int rint_(double a) { return __double2int_rn(a); }
 
-// One scenario's trajectory: controls 0..N-1, states 0..N and the nearest
-// window row (x, y, yaw) of every state.
-template <typename T>
-struct Traj {
-  T ua[kMaxSteps], us[kMaxSteps];
-  T px[kMaxSteps], py[kMaxSteps], pv[kMaxSteps], ph[kMaxSteps];
-  T rx[kMaxSteps], ry[kMaxSteps], rh[kMaxSteps];
-};
+// Products and sums rounded to nearest that nvcc never contracts into an
+// FMA.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// A trajectory's arrays by address: `project` and `total_cost` read and
-// write the current trajectory and a line-search chunk's trials in place
-// through it, one instantiation for both, so the cost of an adopted trial
-// is the cost the resume entry recomputes from the same states, bit for bit.
-template <typename T>
-struct TrajView {
-  T *ua, *us, *px, *py, *pv, *ph, *rx, *ry, *rh;
-};
-
-template <typename T>
-__device__ __forceinline__ TrajView<T> view(Traj<T>& t) {
-  return {t.ua, t.us, t.px, t.py, t.pv, t.ph, t.rx, t.ry, t.rh};
-}
-
-// Per-thread constants of one solve, and its ALM state.
+// Per-scenario constants of one solve, the lane's step and row limit, the
+// warp's shared region, and the ALM state. Every lane holds the same
+// values but `k` and `lim`.
 template <typename T, bool kGravity, bool kAlm>
 struct Ctx : AlmState<T, kAlm> {
   Weights<T> w;
   Problem<T> p;
-  int b, N, M;
-  T up_bound, lo_bound, ref_velo, ell_a2, ell_b2;
-  int lim[kMaxSteps];
+  T* sm;  // the warp's region (`warp_floats`)
+  int b, N, M, S, k, lim;
+  T up_bound, lo_bound, ref_velo, ell_a2, ell_b2, q0x, q0y;
 
   __device__ T at(const T* a, int row) const { return a[(size_t)row * p.B + b]; }
 
+  // The region's arrays, in its order. Step arrays are indexed [f * S + k]
+  // (S = N + 1); the trials [(a * kTrialFields + f) * S + k]; the
+  // obstacles [(f * M + j) * S + k]; the window rows [f * R + r].
+  __device__ T* cur() const { return sm; }
+  __device__ T* gain() const { return sm + kTrajFields * S; }
+  __device__ T* deriv() const { return gain() + kGainFields * S; }
+  __device__ T* jac() const { return deriv() + kDerivFields * S; }
+  __device__ T* trial() const { return jac() + kJacFields * S; }
+  __device__ T* obs() const {
+    return trial() + kTrialFields * (p.ls_chunk > 0 ? p.ls_chunk : 1) * S;
+  }
+  __device__ T* win() const { return obs() + kObsFields * M * S; }
+
   // ALM dual of constraint column `col` at horizon step k (ALM builds
   // only). The duals live in mu_out itself (scenario-fastest like every
-  // other array), so no per-thread copy bounds the obstacle count. Columns
-  // follow the reference's dual layout (src/cilqr_solver.cpp:622-676): 0-3
-  // the control bounds on steps 0..N-1; 4-7 velocity and road-border
-  // bounds, then 8+2j / 9+2j obstacle j's front / rear disc, on steps 1..N.
+  // other array), so nothing bounds the obstacle count. Columns follow the
+  // reference's dual layout (src/cilqr_solver.cpp:622-676): 0-3 the control
+  // bounds on steps 0..N-1; 4-7 velocity and road-border bounds, then 8+2j
+  // / 9+2j obstacle j's front / rear disc, on steps 1..N.
   __device__ T& mu(int col, int k) const {
     const int n = col < 4 ? k : k - 1;
     return this->a.mu_out[((size_t)col * N + n) * p.B + b];
   }
 };
+
+// A trajectory in shared memory: controls 0..N-1 and states 0..N, and for
+// the current trajectory the nearest window row (x, y, yaw) of every state.
+template <typename T>
+struct TrajView {
+  T *ua, *us, *px, *py, *pv, *ph;
+};
+
+// One lane's step of a trajectory, with its projection.
+template <typename T>
+struct Step {
+  T ua, us, px, py, pv, ph, rx, ry, rh;
+};
+
+template <typename T, bool G, bool A>
+__device__ __forceinline__ TrajView<T> cur_view(const Ctx<T, G, A>& c) {
+  T* t = c.cur();
+  const int S = c.S;
+  return {t, t + S, t + 2 * S, t + 3 * S, t + 4 * S, t + 5 * S};
+}
+
+template <typename T, bool G, bool A>
+__device__ __forceinline__ TrajView<T> trial_view(const Ctx<T, G, A>& c, int a) {
+  T* t = c.trial() + a * kTrialFields * c.S;
+  const int S = c.S;
+  return {t, t + S, t + 2 * S, t + 3 * S, t + 4 * S, t + 5 * S};
+}
+
+// The lane's step of trajectory `t` (controls 0 at step N; zeros past it).
+template <typename T, bool G, bool A>
+__device__ __forceinline__ Step<T> load_step(const Ctx<T, G, A>& c, TrajView<T> t) {
+  const int k = c.k;
+  Step<T> s = {};
+  if (k > c.N) return s;
+  s.ua = k < c.N ? t.ua[k] : T(0);
+  s.us = k < c.N ? t.us[k] : T(0);
+  s.px = t.px[k];
+  s.py = t.py[k];
+  s.pv = t.pv[k];
+  s.ph = t.ph[k];
+  return s;
+}
+
+// The lane's step of the current trajectory, with its projection.
+template <typename T, bool G, bool A>
+__device__ __forceinline__ Step<T> cur_step(const Ctx<T, G, A>& c) {
+  Step<T> s = load_step(c, cur_view(c));
+  if (c.k > c.N) return s;
+  const T* r = c.cur() + 6 * c.S;
+  s.rx = r[c.k];
+  s.ry = r[c.S + c.k];
+  s.rh = r[2 * c.S + c.k];
+  return s;
+}
+
+// Sum over the lanes in one fixed order (a shuffle tree into lane 0), the
+// result in every lane: the one horizon sum of the kernel.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) v += __shfl_down_sync(kFull, v, off);
+  return __shfl_sync(kFull, v, 0);
+}
 
 template <typename T, bool G, bool A>
 __device__ __forceinline__ T barrier(const Ctx<T, G, A>& c, T con, T q1, T q2) {
@@ -297,29 +415,20 @@ __device__ __forceinline__ void front_rear(const Ctx<T, G, A>& c, T px, T py, T 
   }
 }
 
-// Products and sums rounded to nearest that nvcc never contracts into an
-// FMA.
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-
-// Score of window row r for the query (qx, qy): the squared distance, or
-// the dot form (p_cr + p_nx qx) + p_ny qy with the query centred on window
-// row 0 (JAX kernel :280-286, :366-367, :434); both have the same argmin in
-// exact arithmetic. The dot form cancels (a score is |r - q|^2 - |q - r0|^2),
-// so it is rounded op by op as the plain version and the TPU kernel round
-// it: contracted into FMAs its near-ties broke otherwise than the plain
-// version's, enough to part float32 paths (three_bend ALM, first tick: cost
-// p90 1.5e-3 against 5e-6 with the squared distance, on the card).
+// Score of window row r for the query (qx, qy), from the staged rows: the
+// squared distance, or the dot form (p_cr + p_nx qx) + p_ny qy with the
+// query centred on window row 0 (JAX kernel :280-286, :366-367, :434); both
+// have the same argmin in exact arithmetic. Both rounded op by op.
 template <bool kDot, typename T, bool G, bool A>
 __device__ __forceinline__ T row_score(const Ctx<T, G, A>& c, int r, T qx, T qy) {
+  const T* win = c.win();
+  const int R = c.p.R;
+  const T f0 = win[r], f1 = win[R + r], f2 = kDot ? win[2 * R + r] : T(0);
   if constexpr (kDot) {
-    return add_rn(add_rn(c.at(c.p.pcr, r), mul_rn(c.at(c.p.pnx, r), qx)),
-                  mul_rn(c.at(c.p.pny, r), qy));
+    return add_rn(add_rn(f0, mul_rn(f1, qx)), mul_rn(f2, qy));
   } else {
-    const T dx = qx - c.at(c.p.rx, r), dy = qy - c.at(c.p.ry, r);
-    return dx * dx + dy * dy;
+    const T dx = qx - f0, dy = qy - f1;
+    return add_rn(mul_rn(dx, dx), mul_rn(dy, dy));
   }
 }
 
@@ -342,63 +451,59 @@ __device__ __forceinline__ int first_min(const Ctx<T, G, A>& c, T qx, T qy, int 
 // n > 1, slot i meets slot i + h (h = n / 2) and the later one wins only
 // on strict <; an odd tail slot 2h moves to slot h; n -= h. Ties go by
 // tournament order, not by first index. The first round scores the window
-// rows; later rounds halve the scratch in place (slot i < h is written,
-// slots >= h are read).
+// rows; later rounds halve the lane's scratch in place (slot i < h is
+// written, slots >= h are read).
 template <bool kDot, typename T, bool G, bool A>
 __device__ int fold_min(const Ctx<T, G, A>& c, T qx, T qy, int n) {
-  T* const fs = c.p.fold_s + c.b;
-  int* const fi = c.p.fold_i + c.b;
-  const size_t B = c.p.B;
+  const size_t base = (size_t)c.k * c.p.B + c.b, slot = (size_t)c.S * c.p.B;
+  T* const fs = c.p.fold_s + base;
+  int* const fi = c.p.fold_i + base;
   if (n == 1) return 0;
   int h = n / 2;
   for (int i = 0; i < h; ++i) {
     const T lo = row_score<kDot>(c, i, qx, qy), hi = row_score<kDot>(c, i + h, qx, qy);
     const bool up = hi < lo;
-    fs[i * B] = up ? hi : lo;
-    fi[i * B] = up ? i + h : i;
+    fs[i * slot] = up ? hi : lo;
+    fi[i * slot] = up ? i + h : i;
   }
   if (n & 1) {
-    fs[h * B] = row_score<kDot>(c, 2 * h, qx, qy);
-    fi[h * B] = 2 * h;
+    fs[h * slot] = row_score<kDot>(c, 2 * h, qx, qy);
+    fi[h * slot] = 2 * h;
   }
   for (n -= h; n > 1; n -= h) {
     h = n / 2;
     for (int i = 0; i < h; ++i) {
-      const T hi = fs[(i + h) * B];
-      if (hi < fs[i * B]) {
-        fs[i * B] = hi;
-        fi[i * B] = fi[(i + h) * B];
+      const T hi = fs[(i + h) * slot];
+      if (hi < fs[i * slot]) {
+        fs[i * slot] = hi;
+        fi[i * slot] = fi[(i + h) * slot];
       }
     }
     if (n & 1) {
-      fs[h * B] = fs[2 * h * B];
-      fi[h * B] = fi[2 * h * B];
+      fs[h * slot] = fs[2 * h * slot];
+      fi[h * slot] = fi[2 * h * slot];
     }
   }
   return fi[0];
 }
 
-// Nearest window row of every state over rows [0, lim[k]), in the solve's
-// projection mode.
+// Nearest window row of the lane's state over rows [0, lim), in the
+// solve's projection mode; lanes past step N keep their zeros.
 template <typename T, bool G, bool A>
-__device__ void project(const Ctx<T, G, A>& c, TrajView<T> t) {
+__device__ void project(const Ctx<T, G, A>& c, Step<T>& s) {
+  if (c.k > c.N) return;
   const Problem<T>& p = c.p;
-  // the dot form's query is centred on this scenario's window row 0
-  const T ox = p.proj_dot ? c.at(p.rx, 0) : T(0), oy = p.proj_dot ? c.at(p.ry, 0) : T(0);
-  for (int k = 0; k <= c.N; ++k) {
-    const int lim = c.lim[k];
-    int bi;
-    if (p.proj_fold) {
-      bi = p.proj_dot ? fold_min<true>(c, t.px[k] - ox, t.py[k] - oy, lim)
-                      : fold_min<false>(c, t.px[k], t.py[k], lim);
-    } else {
-      bi = p.proj_dot ? first_min<true>(c, t.px[k] - ox, t.py[k] - oy, lim)
-                      : first_min<false>(c, t.px[k], t.py[k], lim);
-    }
-    t.rx[k] = c.at(p.rx, bi);
-    t.ry[k] = c.at(p.ry, bi);
-    t.rh[k] = c.at(p.ryaw, bi);
+  int bi;
+  if (p.proj_fold) {
+    bi = p.proj_dot ? fold_min<true>(c, s.px - c.q0x, s.py - c.q0y, c.lim)
+                    : fold_min<false>(c, s.px, s.py, c.lim);
+  } else {
+    bi = p.proj_dot ? first_min<true>(c, s.px - c.q0x, s.py - c.q0y, c.lim)
+                    : first_min<false>(c, s.px, s.py, c.lim);
   }
+  s.rx = c.at(p.rx, bi);
+  s.ry = c.at(p.ry, bi);
+  s.rh = c.at(p.ryaw, bi);
 }
 
 // Ellipse safety margin of point (qx, qy) against obstacle j at step k
@@ -406,11 +511,10 @@ __device__ void project(const Ctx<T, G, A>& c, TrajView<T> t) {
 template <typename T, bool G, bool A>
 __device__ __forceinline__ T ellipse(const Ctx<T, G, A>& c, int j, int k, T qx, T qy, T* gx,
                                      T* gy) {
-  const Problem<T>& p = c.p;
-  const int row = j * (c.N + 1) + k;
-  const T th = c.at(p.oyaw, row);
-  const T ct = cos_(th), st = sin_(th);
-  const T ddx = qx - c.at(p.ox, row), ddy = qy - c.at(p.oy, row);
+  const int S = c.S, MS = c.M * S, e = j * S + k;
+  const T* o = c.obs();
+  const T ct = o[2 * MS + e], st = o[3 * MS + e];
+  const T ddx = qx - o[e], ddy = qy - o[MS + e];
   const T xs = ct * ddx + st * ddy;
   const T ys = -st * ddx + ct * ddy;
   if (gx) {
@@ -424,53 +528,59 @@ __device__ __forceinline__ T ellipse(const Ctx<T, G, A>& c, int j, int k, T qx, 
 
 // Signed lateral offset to the projected row, sign(0) = +1
 // (src/cilqr_solver.cpp:507-509).
-template <typename T, typename Tr>
-__device__ __forceinline__ T lateral(const Tr& t, int k, T* ddx, T* ddy, T* h, T* dsign) {
-  *ddx = t.px[k] - t.rx[k];
-  *ddy = t.py[k] - t.ry[k];
-  *dsign = *ddy * cos_(t.rh[k]) - *ddx * sin_(t.rh[k]);
+template <typename T>
+__device__ __forceinline__ T lateral(const Step<T>& s, T* ddx, T* ddy, T* h, T* dsign) {
+  *ddx = s.px - s.rx;
+  *ddy = s.py - s.ry;
+  *dsign = *ddy * cos_(s.rh) - *ddx * sin_(s.rh);
   *h = hypot_(*ddx, *ddy);
   return *dsign < T(0) ? -*h : *h;
 }
 
-// Total cost of a projected trajectory (src/cilqr_solver.cpp:199-287):
-// tracking cost on steps 0..N, control cost and control-bound penalties on
-// steps 0..N-1, state, border and obstacle penalties on steps 1..N.
+// Cost of the lane's step of a projected trajectory
+// (src/cilqr_solver.cpp:199-287): tracking cost on steps 0..N, control
+// cost and control-bound penalties on steps 0..N-1, state, border and
+// obstacle penalties on steps 1..N; 0 past step N.
 template <typename T, bool G, bool A>
-__device__ T total_cost(const Ctx<T, G, A>& c, TrajView<T> t) {
+__device__ __forceinline__ T step_cost(const Ctx<T, G, A>& c, const Step<T>& s) {
   const Weights<T>& w = c.w;
-  T J = T(0);
-  for (int k = 0; k <= c.N; ++k) {
-    const T dx = t.px[k] - t.rx[k], dy = t.py[k] - t.ry[k];
-    const T dv = t.pv[k] - c.ref_velo, dh = t.ph[k] - t.rh[k];
-    J += w.w_pos * (dx * dx + dy * dy) + w.w_vel * dv * dv + w.w_yaw * dh * dh;
-    if (k < c.N) {
-      const T ua = t.ua[k], us = t.us[k];
-      J += w.w_acc * ua * ua + w.w_stl * us * us;
-      J += pen_val(c, ua - w.acc_max, w.sq1, w.sq2, 0, k) +
-           pen_val(c, w.acc_min - ua, w.sq1, w.sq2, 1, k) +
-           pen_val(c, us - w.stl_lim, w.sq1, w.sq2, 2, k) +
-           pen_val(c, -w.stl_lim - us, w.sq1, w.sq2, 3, k);
-    }
-    if (k >= 1) {
-      const T v = t.pv[k];
-      J += pen_val(c, v - w.velo_max, w.sq1, w.sq2, 4, k) +
-           pen_val(c, w.velo_min - v, w.sq1, w.sq2, 5, k);
-      T ddx, ddy, h, ds;
-      const T cur_d = lateral(t, k, &ddx, &ddy, &h, &ds);
-      J += pen_val(c, cur_d - c.up_bound, w.sq1, w.sq2, 6, k) +
-           pen_val(c, c.lo_bound - cur_d, w.sq1, w.sq2, 7, k);
-      T fx, fy, rx, ry;
-      front_rear(c, t.px[k], t.py[k], cos_(t.ph[k]), sin_(t.ph[k]), fx, fy, rx, ry);
-      for (int j = 0; j < c.M; ++j) {
-        J += pen_val(c, ellipse(c, j, k, fx, fy, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2,
-                     8 + 2 * j, k);
-        J += pen_val(c, ellipse(c, j, k, rx, ry, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2,
-                     9 + 2 * j, k);
-      }
+  const int k = c.k;
+  if (k > c.N) return T(0);
+  const T dx = s.px - s.rx, dy = s.py - s.ry;
+  const T dv = s.pv - c.ref_velo, dh = s.ph - s.rh;
+  T J = w.w_pos * (dx * dx + dy * dy) + w.w_vel * dv * dv + w.w_yaw * dh * dh;
+  if (k < c.N) {
+    J += w.w_acc * s.ua * s.ua + w.w_stl * s.us * s.us;
+    J += pen_val(c, s.ua - w.acc_max, w.sq1, w.sq2, 0, k) +
+         pen_val(c, w.acc_min - s.ua, w.sq1, w.sq2, 1, k) +
+         pen_val(c, s.us - w.stl_lim, w.sq1, w.sq2, 2, k) +
+         pen_val(c, -w.stl_lim - s.us, w.sq1, w.sq2, 3, k);
+  }
+  if (k >= 1) {
+    J += pen_val(c, s.pv - w.velo_max, w.sq1, w.sq2, 4, k) +
+         pen_val(c, w.velo_min - s.pv, w.sq1, w.sq2, 5, k);
+    T ddx, ddy, h, ds;
+    const T cur_d = lateral(s, &ddx, &ddy, &h, &ds);
+    J += pen_val(c, cur_d - c.up_bound, w.sq1, w.sq2, 6, k) +
+         pen_val(c, c.lo_bound - cur_d, w.sq1, w.sq2, 7, k);
+    T fx, fy, rx, ry;
+    front_rear(c, s.px, s.py, cos_(s.ph), sin_(s.ph), fx, fy, rx, ry);
+    for (int j = 0; j < c.M; ++j) {
+      J += pen_val(c, ellipse(c, j, k, fx, fy, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2,
+                   8 + 2 * j, k);
+      J += pen_val(c, ellipse(c, j, k, rx, ry, (T*)nullptr, (T*)nullptr), w.oq1, w.oq2,
+                   9 + 2 * j, k);
     }
   }
   return J;
+}
+
+// Total cost of a projected trajectory: each lane's step, summed by the
+// shuffle tree. The one cost function of the kernel, so the cost of an
+// adopted trial is the cost the resume entry recomputes, bit for bit.
+template <typename T, bool G, bool A>
+__device__ T total_cost(const Ctx<T, G, A>& c, const Step<T>& s) {
+  return warp_sum(step_cost(c, s));
 }
 
 // Cost derivatives at one step (src/cilqr_solver.cpp:463-690); l_ux == 0 and
@@ -481,10 +591,11 @@ struct StepDerivs {
 };
 
 template <typename T, bool G, bool A>
-__device__ void step_derivs(const Ctx<T, G, A>& c, const Traj<T>& t, int k, StepDerivs<T>& D) {
+__device__ void step_derivs(const Ctx<T, G, A>& c, const Step<T>& t, StepDerivs<T>& D) {
   const Weights<T>& w = c.w;
-  const T dx = t.px[k] - t.rx[k], dy = t.py[k] - t.ry[k];
-  const T dv = t.pv[k] - c.ref_velo, dh = t.ph[k] - t.rh[k];
+  const int k = c.k;
+  const T dx = t.px - t.rx, dy = t.py - t.ry;
+  const T dv = t.pv - c.ref_velo, dh = t.ph - t.rh;
   D.lx[0] = T(2) * w.w_pos * dx;
   D.lx[1] = T(2) * w.w_pos * dy;
   D.lx[2] = T(2) * w.w_vel * dv;
@@ -496,7 +607,7 @@ __device__ void step_derivs(const Ctx<T, G, A>& c, const Traj<T>& t, int k, Step
   D.lxx[3][3] = T(2) * w.w_yaw;
   D.lu[0] = D.lu[1] = D.luu00 = D.luu11 = T(0);
   if (k < c.N) {
-    const T ua = t.ua[k], us = t.us[k];
+    const T ua = t.ua, us = t.us;
     const Pen<T> p0 = pen(c, ua - w.acc_max, w.sq1, w.sq2, 0, k);
     const Pen<T> p1 = pen(c, w.acc_min - ua, w.sq1, w.sq2, 1, k);
     const Pen<T> p2 = pen(c, us - w.stl_lim, w.sq1, w.sq2, 2, k);
@@ -507,14 +618,14 @@ __device__ void step_derivs(const Ctx<T, G, A>& c, const Traj<T>& t, int k, Step
     D.luu11 = T(2) * w.w_stl + (p2.h + p3.h);
   }
   if (k >= 1) {
-    const T v = t.pv[k];
+    const T v = t.pv;
     const Pen<T> p4 = pen(c, v - w.velo_max, w.sq1, w.sq2, 4, k);
     const Pen<T> p5 = pen(c, w.velo_min - v, w.sq1, w.sq2, 5, k);
     D.lx[2] += p4.g - p5.g;
     D.lxx[2][2] += p4.h + p5.h;
     // road borders: gradient (+-gx, +-gy, 0, 0), zero at h == 0
     T ddx, ddy, h, ds;
-    const T cur_d = lateral(t, k, &ddx, &ddy, &h, &ds);
+    const T cur_d = lateral(t, &ddx, &ddy, &h, &ds);
     const Pen<T> p6 = pen(c, cur_d - c.up_bound, w.sq1, w.sq2, 6, k);
     const Pen<T> p7 = pen(c, c.lo_bound - cur_d, w.sq1, w.sq2, 7, k);
     const T flip = ds < T(0) ? T(-1) : T(1);
@@ -527,9 +638,9 @@ __device__ void step_derivs(const Ctx<T, G, A>& c, const Traj<T>& t, int k, Step
     D.lxx[0][1] += hsum * gpx * gpy;
     D.lxx[1][1] += hsum * gpy * gpy;
     // obstacle ellipses, chained through the front/rear point Jacobians
-    const T sy = sin_(t.ph[k]), cy = cos_(t.ph[k]);
+    const T sy = sin_(t.ph), cy = cos_(t.ph);
     T fx, fy, rx, ry;
-    front_rear(c, t.px[k], t.py[k], cy, sy, fx, fy, rx, ry);
+    front_rear(c, t.px, t.py, cy, sy, fx, fy, rx, ry);
     for (int j = 0; j < c.M; ++j) {
       for (int front = 1; front >= 0; --front) {
         T gx, gy;
@@ -559,23 +670,115 @@ __device__ void step_derivs(const Ctx<T, G, A>& c, const Traj<T>& t, int k, Step
       }
     }
   }
-  D.lxx[1][0] = D.lxx[0][1];
-  D.lxx[3][0] = D.lxx[0][3];
-  D.lxx[3][1] = D.lxx[1][3];
 }
 
-// Riccati backward pass (src/cilqr_solver.cpp:383-440) with the bicycle
-// Jacobians of src/utils.cpp:285-342:
+// The bicycle Jacobians at one step (src/utils.cpp:285-342):
 // A = I + a02 e0e2' + a03 e0e3' + a12 e1e2' + a13 e1e3' + a32 e3e2',
 // B = dt e2e0' + (b01 e0 + b11 e1 + b31 e3) e1', where b01 = b11 = 0 at the
-// rear center. Returns false when some Q_uu is not positive definite (the
-// pass is then discarded).
+// rear center.
+template <typename T>
+struct Jac {
+  T a02, a03, a12, a13, a32, b01, b11, b31;
+};
+
 template <typename T, bool G, bool A>
-__device__ bool backward(const Ctx<T, G, A>& c, const Traj<T>& t, T lamb, T (*K)[8], T (*d)[2],
-                         T& dV1, T& dV2) {
+__device__ __forceinline__ Jac<T> jacobian(const Ctx<T, G, A>& c, const Step<T>& t) {
   const T dt = c.w.dt, wb = c.w.wb;
+  const T v = t.pv, yaw = t.ph, stl = t.us;
+  const T cyw = cos_(yaw), syw = sin_(yaw);
+  Jac<T> J;
+  if constexpr (G) {
+    // REFERENCE QUIRK, kept on purpose: the Jacobian's slip angle is
+    // atan(tan(stl / 2)) (src/utils.cpp:292; JAX kernel `_beta_jac_trig`
+    // :300-307), not the dynamics' atan(tan(stl) / 2); the derivative
+    // factor dbds is the exact d/dstl of the dynamics' beta.
+    const T tj = tan_(T(0.5) * stl);
+    const T ij = T(1) / sqrt_(T(1) + tj * tj);
+    const T sb = tj * ij, cb = ij;
+    const T tn = tan_(stl);
+    const T t2 = tn * tn;
+    const T dbds = T(0.5) * (T(1) + t2) / (T(1) + T(0.25) * t2);
+    const T cby = cb * cyw - sb * syw, sby = sb * cyw + cb * syw;
+    J.a02 = cby * dt;
+    J.a03 = -v * sby * dt;
+    J.a12 = sby * dt;
+    J.a13 = v * cby * dt;
+    J.a32 = T(2) * sb * dt / wb;
+    J.b01 = -v * sby * dt * dbds;
+    J.b11 = v * cby * dt * dbds;
+    J.b31 = (T(2) * v * dt / wb) * cb * dbds;
+  } else {
+    const T cs = cos_(stl);
+    J.a02 = cyw * dt;
+    J.a03 = -v * syw * dt;
+    J.a12 = syw * dt;
+    J.a13 = v * cyw * dt;
+    J.a32 = tan_(stl) * dt / wb;
+    J.b01 = J.b11 = T(0);
+    J.b31 = (v * dt / wb) / (cs * cs);
+  }
+  return J;
+}
+
+// Each lane stores the cost derivatives of its step of the current
+// trajectory and, below step N, the dynamics Jacobians there.
+template <typename T, bool G, bool A>
+__device__ void derivatives(const Ctx<T, G, A>& c) {
+  const int k = c.k, S = c.S;
+  __syncwarp();  // the last iteration's backward pass has read them
+  if (k <= c.N) {
+    const Step<T> t = cur_step(c);
+    StepDerivs<T> D;
+    step_derivs(c, t, D);
+    T* o = c.deriv() + k;
+    const T f[kDerivFields] = {D.lx[0],     D.lx[1],     D.lx[2],     D.lx[3],     D.lxx[0][0],
+                               D.lxx[0][1], D.lxx[0][3], D.lxx[1][1], D.lxx[1][3], D.lxx[2][2],
+                               D.lxx[3][3], D.lu[0],     D.lu[1],     D.luu00,     D.luu11};
+#pragma unroll
+    for (int i = 0; i < kDerivFields; ++i) o[i * S] = f[i];
+    if (k < c.N) {
+      const Jac<T> J = jacobian(c, t);
+      T* q = c.jac() + k;
+      const T g[kJacFields] = {J.a02, J.a03, J.a12, J.a13, J.a32, J.b01, J.b11, J.b31};
+#pragma unroll
+      for (int i = 0; i < kJacFields; ++i) q[i * S] = g[i];
+    }
+  }
+  __syncwarp();
+}
+
+// Step k's derivatives from the warp's shared arrays (lxx's zero entries
+// are exact zeros, as step_derivs leaves them).
+template <typename T, bool G, bool A>
+__device__ __forceinline__ void read_derivs(const Ctx<T, G, A>& c, int k, StepDerivs<T>& D) {
+  const T* o = c.deriv() + k;
+  const int S = c.S;
+  for (int i = 0; i < 4; ++i) D.lx[i] = o[i * S];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) D.lxx[i][j] = T(0);
+  D.lxx[0][0] = o[4 * S];
+  D.lxx[0][1] = D.lxx[1][0] = o[5 * S];
+  D.lxx[0][3] = D.lxx[3][0] = o[6 * S];
+  D.lxx[1][1] = o[7 * S];
+  D.lxx[1][3] = D.lxx[3][1] = o[8 * S];
+  D.lxx[2][2] = o[9 * S];
+  D.lxx[3][3] = o[10 * S];
+  D.lu[0] = o[11 * S];
+  D.lu[1] = o[12 * S];
+  D.luu00 = o[13 * S];
+  D.luu11 = o[14 * S];
+}
+
+// Riccati backward pass (src/cilqr_solver.cpp:383-440) over the stored
+// derivatives and Jacobians, run by every lane alike; lane 0 stores the
+// gains. Returns false when some Q_uu is not positive definite (the pass is
+// then discarded).
+template <typename T, bool G, bool A>
+__device__ bool backward(const Ctx<T, G, A>& c, T lamb, T& dV1, T& dV2) {
+  const T dt = c.w.dt;
+  const int S = c.S;
   StepDerivs<T> D;
-  step_derivs(c, t, c.N, D);
+  read_derivs(c, c.N, D);
   T Vx[4], V[4][4];
   for (int i = 0; i < 4; ++i) {
     Vx[i] = D.lx[i];
@@ -583,40 +786,10 @@ __device__ bool backward(const Ctx<T, G, A>& c, const Traj<T>& t, T lamb, T (*K)
   }
   dV1 = dV2 = T(0);
   for (int k = c.N - 1; k >= 0; --k) {
-    step_derivs(c, t, k, D);
-    const T v = t.pv[k], yaw = t.ph[k], stl = t.us[k];
-    const T cyw = cos_(yaw), syw = sin_(yaw);
-    T a02, a03, a12, a13, a32, b01, b11, b31;
-    if constexpr (G) {
-      // REFERENCE QUIRK, kept on purpose: the Jacobian's slip angle is
-      // atan(tan(stl / 2)) (src/utils.cpp:292; JAX kernel `_beta_jac_trig`
-      // :300-307), not the dynamics' atan(tan(stl) / 2); the derivative
-      // factor dbds is the exact d/dstl of the dynamics' beta.
-      const T tj = tan_(T(0.5) * stl);
-      const T ij = T(1) / sqrt_(T(1) + tj * tj);
-      const T sb = tj * ij, cb = ij;
-      const T tn = tan_(stl);
-      const T t2 = tn * tn;
-      const T dbds = T(0.5) * (T(1) + t2) / (T(1) + T(0.25) * t2);
-      const T cby = cb * cyw - sb * syw, sby = sb * cyw + cb * syw;
-      a02 = cby * dt;
-      a03 = -v * sby * dt;
-      a12 = sby * dt;
-      a13 = v * cby * dt;
-      a32 = T(2) * sb * dt / wb;
-      b01 = -v * sby * dt * dbds;
-      b11 = v * cby * dt * dbds;
-      b31 = (T(2) * v * dt / wb) * cb * dbds;
-    } else {
-      const T cs = cos_(stl);
-      a02 = cyw * dt;
-      a03 = -v * syw * dt;
-      a12 = syw * dt;
-      a13 = v * cyw * dt;
-      a32 = tan_(stl) * dt / wb;
-      b01 = b11 = T(0);
-      b31 = (v * dt / wb) / (cs * cs);
-    }
+    read_derivs(c, k, D);
+    const T* q = c.jac() + k;
+    const T a02 = q[0], a03 = q[S], a12 = q[2 * S], a13 = q[3 * S], a32 = q[4 * S];
+    const T b01 = q[5 * S], b11 = q[6 * S], b31 = q[7 * S];
 
     T Qx[4], Qu[2], M1[4][4], Qxx[4][4], Qux[2][4];
     Qx[0] = D.lx[0] + Vx[0];
@@ -670,11 +843,16 @@ __device__ bool backward(const Ctx<T, G, A>& c, const Traj<T>& t, T lamb, T (*K)
     for (int j = 0; j < 4; ++j) {
       Kr[0][j] = -(i00 * Qux[0][j] + i01 * Qux[1][j]);
       Kr[1][j] = -(i01 * Qux[0][j] + i11 * Qux[1][j]);
-      K[k][j] = Kr[0][j];
-      K[k][4 + j] = Kr[1][j];
     }
-    d[k][0] = d0;
-    d[k][1] = d1;
+    if (c.k == 0) {
+      T* g = c.gain() + k;
+      for (int j = 0; j < 4; ++j) {
+        g[j * S] = Kr[0][j];
+        g[(4 + j) * S] = Kr[1][j];
+      }
+      g[8 * S] = d0;
+      g[9 * S] = d1;
+    }
     // value update (src/cilqr_solver.cpp:427-432)
     const T Qud0 = q00 * d0 + q01 * d1, Qud1 = q01 * d0 + q11 * d1;
     for (int j = 0; j < 4; ++j)
@@ -695,78 +873,63 @@ __device__ bool backward(const Ctx<T, G, A>& c, const Traj<T>& t, T lamb, T (*K)
   return true;
 }
 
-// One step of a closed-loop trial rollout, u' = u + K (x' - x) + alpha d,
-// then the dynamics (src/cilqr_solver.cpp:442-461).
+// The trial rollouts of one line-search chunk: lane a < m rolls out the
+// closed loop u' = u + K (x' - x) + alpha_a d, then the dynamics
+// (src/cilqr_solver.cpp:442-461), at alpha_a = alpha0 / 2^a, into trial a
+// (JAX kernel `forward_packed`, :857-890). Every chain runs the same
+// instructions, so a trial's bits do not depend on its lane.
 template <typename T, bool G, bool A>
-__device__ __forceinline__ void trial_step(const Ctx<T, G, A>& c, const Traj<T>& cur,
-                                           const T* Kk, const T* dk, int k, T alpha, T& x, T& y,
-                                           T& v, T& h, T& na, T& ns) {
-  const T e0 = x - cur.px[k], e1 = y - cur.py[k], e2 = v - cur.pv[k], e3 = h - cur.ph[k];
-  na = cur.ua[k] + (Kk[0] * e0 + Kk[1] * e1 + Kk[2] * e2 + Kk[3] * e3) + alpha * dk[0];
-  ns = cur.us[k] + (Kk[4] * e0 + Kk[5] * e1 + Kk[6] * e2 + Kk[7] * e3) + alpha * dk[1];
-  propagate(c, x, y, v, h, na, ns);
-}
-
-// The trial rollouts of one line-search chunk, chain by chain: controls
-// and states of up to kMaxChunk alphas (JAX kernel `forward_packed`,
-// :857-890), and the projection of the trial being judged.
-template <typename T>
-struct Chunk {
-  T ua[kMaxChunk][kMaxSteps], us[kMaxChunk][kMaxSteps];
-  T px[kMaxChunk][kMaxSteps], py[kMaxChunk][kMaxSteps];
-  T pv[kMaxChunk][kMaxSteps], ph[kMaxChunk][kMaxSteps];
-  T rx[kMaxSteps], ry[kMaxSteps], rh[kMaxSteps];
-
-  // trial a, in place
-  __device__ __forceinline__ TrajView<T> trial(int a) {
-    return {ua[a], us[a], px[a], py[a], pv[a], ph[a], rx, ry, rh};
-  }
-};
-
-// Closed-loop trial rollouts at alpha0, alpha0 / 2, ... (m of them, 1 <=
-// m <= kMaxChunk) as independent chains advanced together, step by step.
-// The chain loop stays a loop (unroll 1): chain a runs the instructions
-// chain 0 runs, so a trial's bits do not depend on its place in a chunk.
-template <typename T, bool G, bool A>
-__device__ void forward_chunk(const Ctx<T, G, A>& c, const Traj<T>& cur, T (*K)[8], T (*d)[2],
-                              T alpha0, int m, Chunk<T>& ch) {
-  T al[kMaxChunk], x[kMaxChunk], y[kMaxChunk], v[kMaxChunk], h[kMaxChunk];
-#pragma unroll 1
-  for (int a = 0; a < m; ++a) {
-    al[a] = a == 0 ? alpha0 : al[a - 1] * T(0.5);
-    x[a] = ch.px[a][0] = cur.px[0];
-    y[a] = ch.py[a][0] = cur.py[0];
-    v[a] = ch.pv[a][0] = cur.pv[0];
-    h[a] = ch.ph[a][0] = cur.ph[0];
-  }
-  for (int k = 0; k < c.N; ++k) {
-#pragma unroll 1
-    for (int a = 0; a < m; ++a) {
-      trial_step(c, cur, K[k], d[k], k, al[a], x[a], y[a], v[a], h[a], ch.ua[a][k], ch.us[a][k]);
-      ch.px[a][k + 1] = x[a];
-      ch.py[a][k + 1] = y[a];
-      ch.pv[a][k + 1] = v[a];
-      ch.ph[a][k + 1] = h[a];
+__device__ void forward_chunk(const Ctx<T, G, A>& c, T alpha0, int m) {
+  __syncwarp();  // the previous chunk's trials are judged
+  const int a = c.k;
+  if (a < m) {
+    T alpha = alpha0;
+    for (int i = 0; i < a; ++i) alpha *= T(0.5);
+    const TrajView<T> cur = cur_view(c), tr = trial_view(c, a);
+    const T* g = c.gain();
+    const int S = c.S;
+    T x = tr.px[0] = cur.px[0], y = tr.py[0] = cur.py[0];
+    T v = tr.pv[0] = cur.pv[0], h = tr.ph[0] = cur.ph[0];
+    for (int k = 0; k < c.N; ++k) {
+      const T e0 = x - cur.px[k], e1 = y - cur.py[k], e2 = v - cur.pv[k], e3 = h - cur.ph[k];
+      const T na = cur.ua[k] + (g[k] * e0 + g[S + k] * e1 + g[2 * S + k] * e2 + g[3 * S + k] * e3) +
+                   alpha * g[8 * S + k];
+      const T ns = cur.us[k] +
+                   (g[4 * S + k] * e0 + g[5 * S + k] * e1 + g[6 * S + k] * e2 + g[7 * S + k] * e3) +
+                   alpha * g[9 * S + k];
+      propagate(c, x, y, v, h, na, ns);
+      tr.ua[k] = na;
+      tr.us[k] = ns;
+      tr.px[k + 1] = x;
+      tr.py[k + 1] = y;
+      tr.pv[k + 1] = v;
+      tr.ph[k + 1] = h;
     }
   }
+  __syncwarp();
 }
 
-// Trial a of a chunk, projected, becomes the current trajectory.
-template <typename T>
-__device__ void adopt(const Chunk<T>& ch, int a, int N, Traj<T>& cur) {
-  for (int k = 0; k <= N; ++k) {
-    if (k < N) {
-      cur.ua[k] = ch.ua[a][k];
-      cur.us[k] = ch.us[a][k];
+// A judged trial, projected, becomes the current trajectory: each lane
+// copies its step.
+template <typename T, bool G, bool A>
+__device__ void adopt(const Ctx<T, G, A>& c, const Step<T>& s) {
+  const int k = c.k, S = c.S;
+  __syncwarp();
+  if (k <= c.N) {
+    T* t = c.cur() + k;
+    if (k < c.N) {
+      t[0] = s.ua;
+      t[S] = s.us;
     }
-    cur.px[k] = ch.px[a][k];
-    cur.py[k] = ch.py[a][k];
-    cur.pv[k] = ch.pv[a][k];
-    cur.ph[k] = ch.ph[a][k];
-    cur.rx[k] = ch.rx[k];
-    cur.ry[k] = ch.ry[k];
-    cur.rh[k] = ch.rh[k];
+    t[2 * S] = s.px;
+    t[3 * S] = s.py;
+    t[4 * S] = s.pv;
+    t[5 * S] = s.ph;
+    t[6 * S] = s.rx;
+    t[7 * S] = s.ry;
+    t[8 * S] = s.rh;
   }
+  __syncwarp();
 }
 
 // The verdict on line-search trial t at alpha (src/cilqr_solver.cpp:352-372):
@@ -796,32 +959,31 @@ __device__ __forceinline__ void dual_step(const Ctx<T, G, true>& c, T con, int c
 
 // ALM dual update on line-search exhaustion (src/cilqr_solver.cpp:377-379;
 // JAX kernel :1125-1134): every dual steps with the constraint values of
-// the current trajectory, then rho <- min((1 + gamma) rho, max_rho). The
-// JAX kernel precomputes mu_next from the iteration's trajectory every
-// iteration (:664-672) and keeps it only on exhaustion; an exhausted
-// iteration leaves the trajectory unchanged, so computing it here, from
-// `cur`, gives the same values.
+// the current trajectory (each lane its step's), then rho <- min((1 +
+// gamma) rho, max_rho). The JAX kernel precomputes mu_next from the
+// iteration's trajectory every iteration (:664-672) and keeps it only on
+// exhaustion; an exhausted iteration leaves the trajectory unchanged, so
+// computing it here, from the current trajectory, gives the same values.
 template <typename T, bool G>
-__device__ void dual_update(Ctx<T, G, true>& c, const Traj<T>& t) {
+__device__ void dual_update(Ctx<T, G, true>& c, const Step<T>& t) {
   const Weights<T>& w = c.w;
-  for (int k = 0; k <= c.N; ++k) {
+  const int k = c.k;
+  if (k <= c.N) {
     if (k < c.N) {
-      const T ua = t.ua[k], us = t.us[k];
-      dual_step(c, ua - w.acc_max, 0, k);
-      dual_step(c, w.acc_min - ua, 1, k);
-      dual_step(c, us - w.stl_lim, 2, k);
-      dual_step(c, -w.stl_lim - us, 3, k);
+      dual_step(c, t.ua - w.acc_max, 0, k);
+      dual_step(c, w.acc_min - t.ua, 1, k);
+      dual_step(c, t.us - w.stl_lim, 2, k);
+      dual_step(c, -w.stl_lim - t.us, 3, k);
     }
     if (k >= 1) {
-      const T v = t.pv[k];
-      dual_step(c, v - w.velo_max, 4, k);
-      dual_step(c, w.velo_min - v, 5, k);
+      dual_step(c, t.pv - w.velo_max, 4, k);
+      dual_step(c, w.velo_min - t.pv, 5, k);
       T ddx, ddy, h, ds;
-      const T cur_d = lateral(t, k, &ddx, &ddy, &h, &ds);
+      const T cur_d = lateral(t, &ddx, &ddy, &h, &ds);
       dual_step(c, cur_d - c.up_bound, 6, k);
       dual_step(c, c.lo_bound - cur_d, 7, k);
       T fx, fy, rx, ry;
-      front_rear(c, t.px[k], t.py[k], cos_(t.ph[k]), sin_(t.ph[k]), fx, fy, rx, ry);
+      front_rear(c, t.px, t.py, cos_(t.ph), sin_(t.ph), fx, fy, rx, ry);
       for (int j = 0; j < c.M; ++j) {
         dual_step(c, ellipse(c, j, k, fx, fy, (T*)nullptr, (T*)nullptr), 8 + 2 * j, k);
         dual_step(c, ellipse(c, j, k, rx, ry, (T*)nullptr, (T*)nullptr), 9 + 2 * j, k);
@@ -830,9 +992,13 @@ __device__ void dual_update(Ctx<T, G, true>& c, const Traj<T>& t) {
   }
   const T r = (T(1) + c.a.gamma) * c.rho;
   c.rho = r > c.a.max_rho ? c.a.max_rho : r;
+  __syncwarp();
 }
 
-// Resume entry (stats_in != nullptr): the thread restarts a solve stopped
+// One scenario per block of one warp: block blockIdx.x solves scenario
+// blockIdx.x in the block's dynamic shared memory.
+//
+// Resume entry (stats_in != nullptr): the warp restarts a solve stopped
 // before iteration it0. uinit holds the controls it had, whose rollout
 // (the same `propagate` on the same values as the trial that produced
 // them) is the trajectory it had, bit for bit; J is recomputed from it
@@ -841,18 +1007,21 @@ __device__ void dual_update(Ctx<T, G, true>& c, const Traj<T>& t) {
 // come from stats_in, in the stats_out layout. A row that stopped
 // converged or overflowed is passed through unchanged.
 template <typename T, bool G, bool A>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kWarp)
     cilqr_solve_kernel(const Weights<T> w, const RowLimits lim, const Problem<T> p,
                        const AlmArgs<T> alm, const T* __restrict__ stats_in, const int it0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;  // ragged last block
+  const int lane = threadIdx.x, b = blockIdx.x;
   Ctx<T, G, A> c;
   c.w = w;
   c.p = p;
   c.b = b;
   c.N = p.N;
   c.M = p.M;
-  for (int k = 0; k <= p.N; ++k) c.lim[k] = lim.r[k];
+  c.S = p.N + 1;
+  c.k = lane;
+  c.lim = lane <= p.N ? lim.r[lane] : 1;
+  const int N = p.N, S = c.S, M = p.M, R = p.R;
+  c.sm = dynamic_smem<T>();
   // road-border bounds and inflated ellipse axes (src/utils.cpp:387-393,
   // ego disc radius = width / 2)
   c.up_bound = c.at(p.x0, 4) - w.width / T(2);
@@ -862,34 +1031,60 @@ __global__ void __launch_bounds__(kBlock)
   const T eb = T(0.5) * w.width + w.d_safe + T(0.5) * w.width;
   c.ell_a2 = ea * ea;
   c.ell_b2 = eb * eb;
-  const int N = p.N;
+  // the dot form's query is centred on this scenario's window row 0
+  c.q0x = p.proj_dot ? c.at(p.rx, 0) : T(0);
+  c.q0y = p.proj_dot ? c.at(p.ry, 0) : T(0);
   if constexpr (A) {  // the solve updates its duals in place in mu_out
     c.a = alm;
-    const size_t rows = (size_t)(8 + 2 * p.M) * N;
-    for (size_t r = 0; r < rows; ++r) alm.mu_out[r * p.B + b] = alm.mu_in[r * p.B + b];
+    const int rows = (8 + 2 * M) * N;
+    for (int r = lane; r < rows; r += kWarp)
+      alm.mu_out[(size_t)r * p.B + b] = alm.mu_in[(size_t)r * p.B + b];
     c.rho = alm.rho_in[b];
   }
-
-  Traj<T> cur;
-  T K[kMaxSteps][8], d[kMaxSteps][2];
-  Chunk<T> chunk;
-  T x = c.at(p.x0, 0), y = c.at(p.x0, 1), v = c.at(p.x0, 2), h = c.at(p.x0, 3);
-  cur.px[0] = x;
-  cur.py[0] = y;
-  cur.pv[0] = v;
-  cur.ph[0] = h;
-  for (int k = 0; k < N; ++k) {  // rollout of the initial controls
-    cur.ua[k] = c.at(p.uinit, k);
-    cur.us[k] = c.at(p.uinit, N + k);
-    propagate(c, x, y, v, h, cur.ua[k], cur.us[k]);
-    cur.px[k + 1] = x;
-    cur.py[k + 1] = y;
-    cur.pv[k + 1] = v;
-    cur.ph[k + 1] = h;
+  // stage the searched window rows and the obstacle predictions
+  {
+    const T* src[3] = {p.proj_dot ? p.pcr : p.rx, p.proj_dot ? p.pnx : p.ry, p.pny};
+    for (int f = 0; f < window_fields(p.proj_dot); ++f)
+      for (int r = lane; r < R; r += kWarp) c.win()[f * R + r] = c.at(src[f], r);
+    T* o = c.obs();
+    const int MS = M * S;
+    for (int e = lane; e < MS; e += kWarp) {
+      const T th = c.at(p.oyaw, e);
+      o[e] = c.at(p.ox, e);
+      o[MS + e] = c.at(p.oy, e);
+      o[2 * MS + e] = cos_(th);
+      o[3 * MS + e] = sin_(th);
+    }
   }
-  project(c, view(cur));
-  // cost of `cur` under the current duals, kept in step with both
-  T J = total_cost(c, view(cur));
+  const TrajView<T> cur = cur_view(c);
+  if (lane < N) {
+    cur.ua[lane] = c.at(p.uinit, lane);
+    cur.us[lane] = c.at(p.uinit, N + lane);
+  }
+  __syncwarp();
+  if (lane == 0) {  // rollout of the initial controls
+    T x = c.at(p.x0, 0), y = c.at(p.x0, 1), v = c.at(p.x0, 2), h = c.at(p.x0, 3);
+    cur.px[0] = x;
+    cur.py[0] = y;
+    cur.pv[0] = v;
+    cur.ph[0] = h;
+    for (int k = 0; k < N; ++k) {
+      propagate(c, x, y, v, h, cur.ua[k], cur.us[k]);
+      cur.px[k + 1] = x;
+      cur.py[k + 1] = y;
+      cur.pv[k + 1] = v;
+      cur.ph[k + 1] = h;
+    }
+  }
+  __syncwarp();
+  {
+    Step<T> s = load_step(c, cur);
+    project(c, s);
+    adopt(c, s);  // the projection into the current trajectory
+  }
+  // cost of the current trajectory under the current duals, kept in step
+  // with both
+  T J = total_cost(c, cur_step(c));
 
   T lamb = w.init_lamb;
   int status = kRunning, iters = 0, it = 0;
@@ -903,8 +1098,9 @@ __global__ void __launch_bounds__(kBlock)
     it = converged || overflow ? p.max_iter : it0;
   }
   for (; it < p.max_iter; ++it) {
+    derivatives(c);
     T dV1, dV2;
-    const bool pd = backward(c, cur, lamb, K, d, dV1, dV2);
+    const bool pd = backward(c, lamb, dV1, dV2);
     bool accepted = false, conv_now = false, small = false;
     if (pd) {
       // the alphas 1, 1/2, ... in order, rolled out in chunks of ls_chunk
@@ -918,14 +1114,13 @@ __global__ void __launch_bounds__(kBlock)
       Verdict vd = kReject;
       while (t < p.n_alphas && vd == kReject) {
         const int m = min(width, p.n_alphas - t);
-        forward_chunk(c, cur, K, d, alpha, m, chunk);
-#pragma unroll 1
+        forward_chunk(c, alpha, m);
         for (int a = 0; a < m; ++a, ++t, alpha *= T(0.5)) {
-          const TrajView<T> trial = chunk.trial(a);
-          project(c, trial);
-          nJ = total_cost(c, trial);
+          Step<T> s = load_step(c, trial_view(c, a));
+          project(c, s);
+          nJ = total_cost(c, s);
           vd = verdict(w, t, alpha, J, nJ, dV1, dV2);
-          if (vd == kAccept) adopt(chunk, a, N, cur);
+          if (vd == kAccept) adopt(c, s);
           if (vd != kReject) break;
         }
       }
@@ -952,8 +1147,9 @@ __global__ void __launch_bounds__(kBlock)
       // recomputes the iteration's cost with the current duals (:924-925),
       // so the carried cost is recomputed after they move
       if (status == kForwardPassFail) {
-        dual_update(c, cur);
-        J = total_cost(c, view(cur));
+        const Step<T> s = cur_step(c);
+        dual_update(c, s);
+        J = total_cost(c, s);
       }
     }
     if (status == kBackwardPassFail || status == kForwardPassFail) {
@@ -969,31 +1165,37 @@ __global__ void __launch_bounds__(kBlock)
   }
 
   const size_t B = p.B;
-  for (int k = 0; k < N; ++k) {
-    p.u_out[k * B + b] = cur.ua[k];
-    p.u_out[(N + k) * B + b] = cur.us[k];
+  if (lane < N) {
+    p.u_out[lane * B + b] = cur.ua[lane];
+    p.u_out[(N + lane) * B + b] = cur.us[lane];
   }
-  for (int k = 0; k <= N; ++k) {
-    p.x_out[(0 * (N + 1) + k) * B + b] = cur.px[k];
-    p.x_out[(1 * (N + 1) + k) * B + b] = cur.py[k];
-    p.x_out[(2 * (N + 1) + k) * B + b] = cur.pv[k];
-    p.x_out[(3 * (N + 1) + k) * B + b] = cur.ph[k];
+  if (lane <= N) {
+    p.x_out[(0 * S + lane) * B + b] = cur.px[lane];
+    p.x_out[(1 * S + lane) * B + b] = cur.py[lane];
+    p.x_out[(2 * S + lane) * B + b] = cur.pv[lane];
+    p.x_out[(3 * S + lane) * B + b] = cur.ph[lane];
   }
-  p.stats_out[0 * B + b] = T(iters);
-  p.stats_out[1 * B + b] = T(status);
-  p.stats_out[2 * B + b] = converged ? T(1) : T(0);
-  p.stats_out[3 * B + b] = overflow ? T(1) : T(0);
-  // the final cost under the final duals (JAX kernel :1181-1182)
-  p.stats_out[4 * B + b] = J;
-  p.stats_out[5 * B + b] = lamb;
-  if constexpr (A) alm.rho_out[b] = c.rho;
+  if (lane == 0) {
+    p.stats_out[0 * B + b] = T(iters);
+    p.stats_out[1 * B + b] = T(status);
+    p.stats_out[2 * B + b] = converged ? T(1) : T(0);
+    p.stats_out[3 * B + b] = overflow ? T(1) : T(0);
+    // the final cost under the final duals (JAX kernel :1181-1182)
+    p.stats_out[4 * B + b] = J;
+    p.stats_out[5 * B + b] = lamb;
+    if constexpr (A) alm.rho_out[b] = c.rho;
+  }
 }
 
 template <typename T, bool G, bool A>
 int launch_variant(const Weights<T>& w, const RowLimits& lim, const Problem<T>& p,
-                   const AlmArgs<T>& alm, const T* stats_in, int it0, cudaStream_t stream) {
-  cilqr_solve_kernel<T, G, A><<<(p.B + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-      w, lim, p, alm, stats_in, it0);
+                   const AlmArgs<T>& alm, const T* stats_in, int it0, int bytes,
+                   cudaStream_t stream) {
+  auto kernel = cilqr_solve_kernel<T, G, A>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.B, kWarp, bytes, stream>>>(w, lim, p, alm, stats_in, it0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1003,7 +1205,7 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
            const T* rho_in, const T* stats_in, T* u_out, T* x_out, T* stats_out, T* mu_out,
            T* rho_out, const T* pcr, const T* pnx, const T* pny, T* fold_s, int* fold_i, int B,
            int N, int M, int W, int max_iter, int it0, int n_alphas, int gravity, int alm,
-           int proj_dot, int proj_fold, int ls_chunk, cudaStream_t stream) {
+           int proj_dot, int proj_fold, int ls_chunk, int shared_bytes, cudaStream_t stream) {
   static_assert(sizeof(Weights<T>) == kNumWeights * sizeof(T), "weights layout");
   if (B < 0 || N < 1 || N + 1 > kMaxSteps || M < 0 || W < 1 || max_iter < 0 || n_alphas < 0)
     return cudaErrorInvalidValue;
@@ -1017,23 +1219,51 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
   Weights<T> w;
   std::memcpy(&w, wts, sizeof(w));
   RowLimits lim = {};
+  int R = 0;
   for (int k = 0; k <= N; ++k) {
     if (limits[k] < 1 || limits[k] > W) return cudaErrorInvalidValue;
     lim.r[k] = limits[k];
+    R = limits[k] > R ? limits[k] : R;
   }
+  // the launch plan the wrapper computed: its shared bytes must be this
+  // file's count
+  if (shared_bytes != warp_bytes<T>(N, M, R, ls_chunk, proj_dot)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const Problem<T> p = {x0,       uinit,  rx,     ry,        ryaw,      ox,       oy,
                         oyaw,     u_out,  x_out,  stats_out, pcr,       pnx,      pny,
-                        fold_s,   fold_i, B,      N,         M,         W,        max_iter,
-                        n_alphas, proj_dot, proj_fold, ls_chunk};
+                        fold_s,   fold_i, B,      N,         M,         W,        R,
+                        max_iter, n_alphas, proj_dot, proj_fold, ls_chunk};
   const AlmArgs<T> a = {mu_in, rho_in, mu_out, rho_out, wts[kNumWeights],
                         wts[kNumWeights + 1], wts[kNumWeights + 2]};
+  const int sb = shared_bytes;
   if (gravity) {
-    return alm ? launch_variant<T, true, true>(w, lim, p, a, stats_in, it0, stream)
-               : launch_variant<T, true, false>(w, lim, p, a, stats_in, it0, stream);
+    return alm ? launch_variant<T, true, true>(w, lim, p, a, stats_in, it0, sb, stream)
+               : launch_variant<T, true, false>(w, lim, p, a, stats_in, it0, sb, stream);
   }
-  return alm ? launch_variant<T, false, true>(w, lim, p, a, stats_in, it0, stream)
-             : launch_variant<T, false, false>(w, lim, p, a, stats_in, it0, stream);
+  return alm ? launch_variant<T, false, true>(w, lim, p, a, stats_in, it0, sb, stream)
+             : launch_variant<T, false, false>(w, lim, p, a, stats_in, it0, sb, stream);
+}
+
+// Blocks (scenarios) resident on one SM at `shared_bytes` a block.
+template <typename T, bool G, bool A>
+int occupancy_variant(int shared_bytes, int* blocks) {
+  auto kernel = cilqr_solve_kernel<T, G, A>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         shared_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWarp, shared_bytes));
+}
+
+template <typename T>
+int occupancy(int gravity, int alm, int shared_bytes, int* blocks) {
+  if (shared_bytes < 0 || !blocks) return cudaErrorInvalidValue;
+  if (gravity) {
+    return alm ? occupancy_variant<T, true, true>(shared_bytes, blocks)
+               : occupancy_variant<T, true, false>(shared_bytes, blocks);
+  }
+  return alm ? occupancy_variant<T, false, true>(shared_bytes, blocks)
+             : occupancy_variant<T, false, false>(shared_bytes, blocks);
 }
 
 }  // namespace
@@ -1046,7 +1276,8 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
 // resume entry, which runs iterations [it0, max_iter); it0 is 0 without it.
 // `gravity` and `alm` pick the instantiation; `proj_dot` and `proj_fold`
 // the projection mode; `ls_chunk` is the line search's chunk width, 0
-// (serial) to kMaxChunk. Returns the launch's cudaError_t.
+// (serial) to kMaxChunk. `shared_bytes` (one scenario's region, a block of
+// one warp) is the wrapper's launch plan. Returns the launch's cudaError_t.
 #define CILQR_ENTRY(NAME, T)                                                                   \
   extern "C" int NAME(const T* wts, const int* limits, const T* x0, const T* uinit,            \
                       const T* rx, const T* ry, const T* ryaw, const T* ox, const T* oy,       \
@@ -1054,12 +1285,23 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
                       T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out, const T* pcr,   \
                       const T* pnx, const T* pny, T* fold_s, int* fold_i, int B, int N, int M, \
                       int W, int max_iter, int it0, int n_alphas, int gravity, int alm,        \
-                      int proj_dot, int proj_fold, int ls_chunk, void* stream) {               \
+                      int proj_dot, int proj_fold, int ls_chunk, int shared_bytes,             \
+                      void* stream) {                                                          \
     return launch<T>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,       \
                      stats_in, u_out, x_out, stats_out, mu_out, rho_out, pcr, pnx, pny,       \
                      fold_s, fold_i, B, N, M, W, max_iter, it0, n_alphas, gravity, alm,       \
-                     proj_dot, proj_fold, ls_chunk, static_cast<cudaStream_t>(stream));       \
+                     proj_dot, proj_fold, ls_chunk, shared_bytes,                             \
+                     static_cast<cudaStream_t>(stream));                                      \
   }
 
 CILQR_ENTRY(cilqr_solve_f32, float)
 CILQR_ENTRY(cilqr_solve_f64, double)
+
+// Blocks (scenarios) of the instantiation (`gravity`, `alm`) resident on
+// one SM at `shared_bytes` a block, into *blocks.
+extern "C" int cilqr_occupancy_f32(int gravity, int alm, int shared_bytes, int* blocks) {
+  return occupancy<float>(gravity, alm, shared_bytes, blocks);
+}
+extern "C" int cilqr_occupancy_f64(int gravity, int alm, int shared_bytes, int* blocks) {
+  return occupancy<double>(gravity, alm, shared_bytes, blocks);
+}

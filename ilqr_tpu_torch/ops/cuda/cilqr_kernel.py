@@ -3,13 +3,16 @@
 Counterpart of ``ilqr_tpu/ops/pallas/cilqr_kernel.py`` (the TPU kernel
 ``kernel`` built by ``_build_kernel`` and launched by ``call_kernel``). The
 kernel itself is CUDA C++ in ``ilqr_tpu_torch/csrc/cilqr_kernel.cu``: one
-thread runs one scenario's whole solve (initial rollout and projection, up
+warp runs one scenario's whole solve (initial rollout and projection, up
 to ``max_iter`` iterations of cost derivatives, Riccati backward pass and
 line search, the lambda/status machine, and in ALM mode the dual
-update). It is instantiated per scalar type (float32, float64), bicycle
-reference point (rear center, gravity center) and penalty family
-(barrier, ALM); the projection mode and the line search's chunk width are
-runtime arguments. ``variant`` names what a solve runs.
+update), lane k owning horizon step k, a block of one warp a scenario,
+the solve's state in the block's dynamic shared memory. ``launch_plan``
+computes the launch shape and that memory on the host. The kernel is
+instantiated per scalar type (float32, float64), bicycle reference point
+(rear center, gravity center) and penalty family (barrier, ALM); the
+projection mode and the line search's chunk width are runtime arguments.
+``variant`` names what a solve runs.
 
 The modes (``Modes`` of ``ops/projection.py``, carried by ``PackedProblem``
 so the kernel, its plain version and a resumed phase read the same
@@ -103,8 +106,17 @@ W_BACK = 64  # window rows behind the ego's initial projection
 # Extra window rows above the per-step search bound (the JAX package's
 # shipped value, ilqr_tpu/ops/pallas/cilqr_kernel.py:1235).
 _PROJ_SLACK = 16
-MAX_STEPS = 32  # the kernel's horizon bound: N + 1 <= MAX_STEPS
+WARP = 32  # lanes of a warp: the lanes of one scenario
+MAX_STEPS = WARP  # the kernel's horizon bound: N + 1 <= MAX_STEPS, a lane per step
 MAX_LS_CHUNK = 8  # the widest line-search chunk (kMaxChunk in the .cu source)
+MAX_SHARED_BYTES = 232448  # dynamic shared memory a block can use on the H100 (227 KB)
+# Scalars of one warp's shared region per horizon step (`warp_floats` in the
+# .cu source): the current trajectory (9), gains (10), cost derivatives
+# (15), dynamics Jacobians (8); per chunk chain (6); per obstacle (4); and
+# per searched window row, 2 (squared distance) or 3 (dot form).
+_STEP_FIELDS = 9 + 10 + 15 + 8
+_TRIAL_FIELDS = 6
+_OBS_FIELDS = 4
 
 # Kernel launches in this process, by instantiation and modes (``variant``;
 # a launch of the resume entry counts under ``variant + "_resume"``); only
@@ -116,6 +128,11 @@ _SOURCE = _PKG / "csrc" / "cilqr_kernel.cu"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The solve kernel rounds every product and sum on its own (no FMA
+# contraction): the cost a trial was judged by and the cost the resume entry
+# recomputes come from separately inlined copies of one function, which
+# nvcc contracted differently (float64 ALM compaction was not bitwise).
+KERNEL_FLAGS = NVCC_FLAGS + ("-fmad=false",)
 
 # Order of the weights the kernel reads (struct Weights in the .cu source).
 _WEIGHT_ORDER = (
@@ -349,20 +366,21 @@ def _nvcc() -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
-def build_library(source: Path, stem: str):
-    """Build ``source`` with nvcc into a shared library in ``_build/`` (once
-    per hash of the source and flags) and load it with ctypes.
+def build_library(source: Path, stem: str, flags: tuple = NVCC_FLAGS):
+    """Build ``source`` with nvcc and ``flags`` into a shared library in
+    ``_build/`` (once per hash of the source and flags) and load it with
+    ctypes.
 
     Returns (ctypes library, the nvcc log of its build). Raises with nvcc's
     output when the build fails.
     """
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
     so = _BUILD_DIR / f"{stem}_{key.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
@@ -377,13 +395,79 @@ def load_library():
     """Build the kernel library (once per source hash) and load it.
 
     Returns (ctypes library, the nvcc log of its build)."""
-    lib, log = build_library(_SOURCE, "libcilqr")
+    lib, log = build_library(_SOURCE, "libcilqr", KERNEL_FLAGS)
+    return bind_kernel(lib), log
+
+
+def bind_kernel(lib):
+    """Declare the argument and result types of the kernel library's C
+    entry points on ``lib``; returns it."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("cilqr_solve_f32", "cilqr_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 23 + [ci] * 12 + [vp]
+        fn.argtypes = [vp] * 23 + [ci] * 13 + [vp]
         fn.restype = ci
-    return lib, log
+    for name in ("cilqr_occupancy_f32", "cilqr_occupancy_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ci] * 3 + [vp]
+        fn.restype = ci
+    return lib
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel runs a batch: a block of one warp per scenario, lane k
+    owning step k."""
+
+    lanes: int  # lanes per scenario
+    step_lane: tuple  # the lane that owns each step 0..N
+    grid: int  # blocks, one a scenario
+    block: int  # threads a block
+    shared_bytes: int  # dynamic shared memory a block: one scenario's
+
+
+def region_bytes(N: int, M: int, R: int, dtype: torch.dtype, modes: Modes) -> int:
+    """Shared bytes of one scenario's solve (the .cu source's
+    ``warp_bytes``): N horizon steps, M obstacle columns (padded to 1 when
+    none), R window rows searched (the largest row limit), in ``dtype``
+    under ``modes``; a multiple of 16."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    chains = max(modes.ls_chunk, 1)
+    floats = ((N + 1) * (_STEP_FIELDS + _TRIAL_FIELDS * chains + _OBS_FIELDS * M)
+              + (3 if modes.proj_dot else 2) * R)
+    size = torch.empty((), dtype=dtype).element_size()
+    return -(-floats * size // 16) * 16
+
+
+def launch_plan(B: int, N: int, M: int, R: int, dtype: torch.dtype,
+                modes: Modes) -> LaunchPlan:
+    """The launch of a batch of B solves: a block of one warp per scenario
+    (lane k owns horizon step k, so N + 1 <= WARP), each block
+    ``region_bytes`` of dynamic shared memory. Raises when the horizon
+    exceeds a warp or the block's shared memory exceeds MAX_SHARED_BYTES."""
+    check_modes(modes)
+    if N + 1 > MAX_STEPS:
+        raise ValueError(f"N={N} exceeds the kernel's horizon bound {MAX_STEPS - 1}")
+    region = region_bytes(N, M, R, dtype, modes)
+    if region > MAX_SHARED_BYTES:
+        raise ValueError(f"{region} shared bytes exceed the block's "
+                         f"{MAX_SHARED_BYTES} (window rows {R}, obstacles {M})")
+    return LaunchPlan(lanes=WARP, step_lane=tuple(range(N + 1)), grid=B, block=WARP,
+                      shared_bytes=region)
+
+
+def resident_scenarios(cfg: CILQRConfig, dtype: torch.dtype, plan: LaunchPlan) -> int:
+    """Scenarios (blocks) of ``plan`` resident on one SM of the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): what registers and
+    shared bytes allow."""
+    _, gravity, alm = instantiation(cfg, dtype)
+    lib = load_library()[0]
+    fn = lib.cilqr_occupancy_f32 if dtype == torch.float32 else lib.cilqr_occupancy_f64
+    blocks = ctypes.c_int(0)
+    err = fn(int(gravity), int(alm), plan.shared_bytes, ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError_t {err}")
+    return blocks.value
 
 
 def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
@@ -414,17 +498,24 @@ def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
         raise ValueError(f"it0={p.it0}: a solve starts at 0 unless it resumes from stats")
 
 
-def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
-                       max_iter: Optional[int] = None) -> PackedSolution:
-    """Launch the CUDA kernel on packed CUDA tensors for iterations
-    [p.it0, max_iter) (``cfg.max_iter`` when None), through its resume
-    entry when ``p.stats`` is given; returns the solution packed like
-    ``cilqr_solve_ref``'s. Raises on anything the kernel lacks."""
+class Launch(NamedTuple):
+    """One solve's kernel arguments before the launch plan, and its outputs."""
+
+    name: str  # ``variant`` (+ ``_resume``)
+    args: tuple  # the C entry's arguments up to ``ls_chunk``
+    keep: tuple  # host arrays the arguments point into
+    out: PackedSolution
+
+
+def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
+                   max_iter: Optional[int] = None) -> Launch:
+    """Check ``p`` and allocate the outputs (and the modes' scratch) of a
+    solve of iterations [p.it0, max_iter) (``cfg.max_iter`` when None)
+    on ``p``'s device; return the C entry's arguments. Raises on anything
+    the kernel lacks."""
     dtype, dev = p.x0.dtype, p.x0.device
     name = variant(cfg, dtype, p.modes) + ("" if p.stats is None else "_resume")
     _, gravity, alm = instantiation(cfg, dtype, p.modes)
-    if dev.type != "cuda":
-        raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {dev}")
     check_packed(cfg, p)
     N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
     mu_in = rho_in = mu = rho = None
@@ -435,15 +526,14 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
         mu = torch.empty_like(mu_in)
         rho = torch.empty_like(rho_in)
     # the dot form's window terms, once per launch; the fold's scratch of
-    # ceil(R / 2) scores and row indices per scenario
+    # ceil(R / 2) scores and row indices per step and scenario
     pcr = pnx = pny = fold_s = fold_i = None
     if p.modes.proj_dot:
         pcr, pnx, pny = dot_terms(p.rx, p.ry, dim=0)
     if p.modes.proj_fold:
         half = (max(p.row_limits) + 1) // 2
-        fold_s = torch.empty((half, B), dtype=dtype, device=dev)
-        fold_i = torch.empty((half, B), dtype=torch.int32, device=dev)
-    lib, _ = load_library()
+        fold_s = torch.empty((half, N + 1, B), dtype=dtype, device=dev)
+        fold_i = torch.empty((half, N + 1, B), dtype=torch.int32, device=dev)
     u = torch.empty((2, N, B), dtype=dtype, device=dev)
     x = torch.empty((4, N + 1, B), dtype=dtype, device=dev)
     stats = torch.empty((6, B), dtype=dtype, device=dev)
@@ -451,24 +541,50 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     wvals = torch.stack([getattr(w, f) for f in _WEIGHT_ORDER]).to(dtype).tolist()
     wts = (scalar * len(wvals))(*wvals)
     lims = (ctypes.c_int * (N + 1))(*p.row_limits)
-    fn = lib.cilqr_solve_f32 if dtype == torch.float32 else lib.cilqr_solve_f64
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.addressof(wts), ctypes.addressof(lims),
-                 *(ptr(t) for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw, p.ox, p.oy, p.oyaw,
-                                    mu_in, rho_in, p.stats, u, x, stats, mu, rho,
-                                    pcr, pnx, pny, fold_s, fold_i)),
-                 B, N, M, W, cfg.max_iter if max_iter is None else max_iter, p.it0,
-                 len(alpha_schedule(cfg.min_alpha)), int(gravity), int(alm),
-                 int(p.modes.proj_dot), int(p.modes.proj_fold), p.modes.ls_chunk, stream)
+    args = (ctypes.addressof(wts), ctypes.addressof(lims),
+            *(ptr(t) for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw, p.ox, p.oy, p.oyaw,
+                               mu_in, rho_in, p.stats, u, x, stats, mu, rho,
+                               pcr, pnx, pny, fold_s, fold_i)),
+            B, N, M, W, cfg.max_iter if max_iter is None else max_iter, p.it0,
+            len(alpha_schedule(cfg.min_alpha)), int(gravity), int(alm),
+            int(p.modes.proj_dot), int(p.modes.proj_fold), p.modes.ls_chunk)
+    # the inputs and the scratch stay referenced until the launch is enqueued
+    keep = (wts, lims, mu_in, rho_in, pcr, pnx, pny, fold_s, fold_i)
+    return Launch(name, args, keep, PackedSolution(u, x, stats, mu, rho))
+
+
+def run_entry(fn, launch: Launch, device, *extra) -> None:
+    """Call the C entry ``fn`` with ``launch``'s arguments, then ``extra``,
+    on ``device``'s current stream; raises on a launch error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*launch.args, *extra, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
-    return PackedSolution(u, x, stats, mu, rho)
+        raise RuntimeError(f"{launch.name} kernel launch failed: cudaError_t {err}")
+
+
+def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
+                       max_iter: Optional[int] = None) -> PackedSolution:
+    """Launch the CUDA kernel on packed CUDA tensors for iterations
+    [p.it0, max_iter) (``cfg.max_iter`` when None), through its resume
+    entry when ``p.stats`` is given, with ``launch_plan``'s shape; returns
+    the solution packed like ``cilqr_solve_ref``'s. Raises on anything the
+    kernel lacks."""
+    instantiation(cfg, p.x0.dtype, p.modes)  # raises on what no instantiation covers
+    if p.x0.device.type != "cuda":
+        raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {p.x0.device}")
+    launch = prepare_launch(cfg, w, p, max_iter)
+    plan = launch_plan(p.x0.shape[1], cfg.N, p.ox.shape[0], max(p.row_limits), p.x0.dtype,
+                       p.modes)
+    lib = load_library()[0]
+    fn = lib.cilqr_solve_f32 if p.x0.dtype == torch.float32 else lib.cilqr_solve_f64
+    run_entry(fn, launch, p.x0.device, plan.shared_bytes)
+    launches[launch.name] += 1
+    return launch.out
 
 
 def straggler_schedule(straggler_cap, max_iter: int) -> tuple:
@@ -507,18 +623,20 @@ def resume_problem(p: PackedProblem, out: PackedSolution, rows: torch.Tensor,
 
 
 def solve_packed(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem, straggler_cap=0,
-                 work: Optional[dict] = None) -> PackedSolution:
+                 work: Optional[dict] = None, solve=None) -> PackedSolution:
     """Solve a packed batch: the kernel on CUDA tensors (one launch per
     phase), the plain version on CPU tensors (``work`` as in
     ``cilqr_solve_ref``), with straggler compaction when ``straggler_cap``
     sets phases (``straggler_schedule``). Each later phase resumes only the
     rows the phase before left running and is skipped when there are none;
-    the result equals a one-phase solve bit for bit."""
-    if p.x0.device.type == "cuda":
+    the result equals a one-phase solve bit for bit. ``solve(cfg, w, p,
+    max_iter=)`` replaces the phase's solver (a test's build of the
+    kernel)."""
+    if solve is None and p.x0.device.type == "cuda":
         solve = cilqr_solve_kernel
-    elif p.x0.device.type == "cpu":
+    elif solve is None and p.x0.device.type == "cpu":
         solve = functools.partial(cilqr_solve_ref, work=work)
-    else:
+    elif solve is None:
         raise ValueError(f"unsupported device {p.x0.device}")
     schedule = straggler_schedule(straggler_cap, cfg.max_iter)
     out = solve(cfg, w, p, max_iter=schedule[0])

@@ -1,0 +1,105 @@
+// CPU stand-in for the CUDA runtime, enough to run the solve kernel's
+// source (ilqr_tpu_torch/csrc/cilqr_kernel.cu) on the host in tests: one
+// std::thread per CUDA thread, a std::barrier per warp for __syncwarp and
+// the shuffles (every lane of a warp must reach each of them, as on the
+// card with a full mask), one block at a time, a block's dynamic shared
+// memory filled with NaN bytes. Rounding: each product and sum rounds on
+// its own (build with -ffp-contract=off), as the kernel's -fmad=false
+// build does on the card.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__ __restrict
+#define __align__(n) alignas(n)
+#define __shared__
+
+using std::max;
+using std::min;
+
+struct EmuDim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+inline thread_local EmuDim3 threadIdx, blockIdx, blockDim;
+inline thread_local unsigned char* emu_smem;  // the block's dynamic shared memory
+
+struct EmuWarp {
+  std::barrier<> bar{32};
+  unsigned char slot[32][8];
+
+  void arrive_and_wait() { bar.arrive_and_wait(); }
+};
+inline thread_local EmuWarp* emu_warp;
+
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->arrive_and_wait(); }
+
+template <class T>
+T emu_exchange(T v, int src, bool in_range) {
+  const int lane = threadIdx.x % 32;
+  std::memcpy(emu_warp->slot[lane], &v, sizeof(T));
+  emu_warp->arrive_and_wait();
+  T r = v;
+  if (in_range) std::memcpy(&r, emu_warp->slot[src], sizeof(T));
+  emu_warp->arrive_and_wait();
+  return r;
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  return emu_exchange(v, src, true);
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, unsigned d) {
+  const int src = threadIdx.x % 32 + d;
+  return emu_exchange(v, src, src < 32);
+}
+
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline int __float2int_rn(float a) { return static_cast<int>(std::nearbyint(a)); }
+inline int __double2int_rn(double a) { return static_cast<int>(std::nearbyint(a)); }
+
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
+
+// kernel<<<grid, block, bytes, stream>>>(args...), rewritten by the test
+// into this call: one block at a time.
+template <class F, class... A>
+void emu_launch(F kernel, unsigned grid, unsigned block, size_t bytes, cudaStream_t, A... args) {
+  for (unsigned bi = 0; bi < grid; ++bi) {
+    std::vector<unsigned char> smem(bytes + 16, 0xff);
+    std::vector<EmuWarp> warps((block + 31) / 32);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block; ++t)
+      threads.emplace_back([&, t]() {
+        threadIdx.x = t;
+        blockIdx.x = bi;
+        blockDim.x = block;
+        emu_smem = smem.data();
+        emu_warp = &warps[t / 32];
+        kernel(args...);
+      });
+    for (auto& t : threads) t.join();
+  }
+}

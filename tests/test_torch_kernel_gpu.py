@@ -47,7 +47,7 @@ def test_kernel_matches_plain_on_gpu(cuda_device, case):
     iterations and statuses equal on >= 99% of rows (a threshold decision
     can flip on 1e-16 sum-order differences), u, x and the duals within
     1e-6 on those rows; one launch counted, on this instantiation."""
-    B = 200  # two blocks of 128 threads, the second ragged
+    B = 200  # 200 blocks of one warp
     cfg, w, p = _packed(case, torch.float64, cuda_device, B)
     name = ck.variant(cfg, torch.float64)
     launches = ck.launches[name]
@@ -177,3 +177,21 @@ def test_kernel_chunked_line_search_bitwise(cuda_device, case, dtype):
             for a, b in zip(serial, out):
                 assert (a is None and b is None) or torch.equal(a, b)
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_warp_kernel_matches_thread_kernel_f64(cuda_device, case):
+    """The warp-per-scenario kernel against the thread-per-scenario kernel it
+    replaced, in double on the same packed inputs (batch 256, cold,
+    squared distance, serial search): iterations and statuses equal on >=
+    99% of rows, u, x and the duals within 1e-6 on those rows."""
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel_thread as ckt
+
+    cfg, w, p = _packed(case, torch.float64, cuda_device, 256)
+    name = ck.variant(cfg, torch.float64)
+    before = ckt.launches[name]
+    k = ck.cilqr_solve_kernel(cfg, w, p)
+    thread = ckt.solve(cfg, w, p)
+    torch.cuda.synchronize()
+    assert ckt.launches[name] == before + 1
+    _same_rows_close(k, thread, cfg.solve_type == "alm")
