@@ -8,7 +8,8 @@ arguments), the thread-per-scenario kernel it replaced (for comparison
 only) and the ``tools/debug`` repro kernels from this checkout's sources,
 one nvcc per source, started together; holds every kernel against its
 plain PyTorch version, and drives the port's paths through it with
-``run_mpc_kernel``,
+``run_mpc_kernel`` (the host loop) and the graph-captured episode program
+(``run_mpc_kernel_chunked`` / ``run_mpc_kernel_scan``, phase 8),
 float32, batch 8192 perturbed starts (seed 0), in the modes the card
 resolves (``ck.resolve_modes``: the dot-form projection and chunks of 4
 alphas, as the JAX package ran its main path on its chip):
@@ -108,6 +109,20 @@ non-zero and prints no final line:
    the chunked runs bitwise equal to the serial ones of the same
    projection; then the card's default configuration once more under
    ``torch.profiler``: the device's busy time and idle share;
+8. the graph drivers: the main path through ``run_mpc_kernel_chunked``
+   (chunks of 10) and ``run_mpc_kernel_scan`` (all 120 ticks one graph),
+   path (a) through the scan with its schedule (every phase relaunching
+   the sorted batch) and path (b) through both with the duals carried,
+   each captured, then replayed, and every run bitwise equal to the host
+   loop's episode of phases 3-4 (the scan's final duals too; the main path
+   at 52.70 m); a replay counts one launch a tick; the host loop against
+   the chunked driver on the main path in the order host, graph, graph,
+   host (the graph driver must win both pairs), each once more under
+   ``torch.profiler`` (the solve kernel's device ms, the busy time, and
+   the idle share against the unprofiled wall); compaction off, on, on,
+   off through the graph driver on the main path (the bench's schedule)
+   and path (a) ((8, 16, 32)), bitwise equal; and the line of
+   ``python -m ilqr_tpu_torch.apps.bench`` (mean final ego x 52.70 m);
 7. the ``tools/debug`` repro kernels: each flow once with the counts at 0,
    then each kernel bitwise equal to its plain version and to the repro's
    closed form, with its time per call (200 calls between CUDA events,
@@ -115,10 +130,11 @@ non-zero and prints no final line:
    device spans of 200 calls) and the same two for the plain version and
    the library call.
 
-Cut to stay under eight minutes: the off/on/on/off compaction timing of the
-main path and path (a) is gone, so path (a) runs twice instead of
-five times and the main path's compaction runs once; phase 6 times the
-modes instead. Phase 1 runs the dot form and the fold against the plain
+Cut to stay under eight minutes: the host loop's off/on/on/off compaction
+timing of the main path and path (a) is gone (phase 8 times compaction
+through the graph driver), so path (a) runs twice through the host loop
+instead of five times and the main path's compaction runs once there;
+phase 6 times the modes instead. Phase 1 runs the dot form and the fold against the plain
 version on the four instantiations and not on the moving-dual case, which
 shares gravity/ALM's instantiation (its dot form is held to the plain
 version by the phase 5 episodes).
@@ -202,6 +218,8 @@ EPISODE_F64_TICKS = 3
 EPISODE_F64_SCHEDULE = dict(straggler_cap=F64_CAPS)
 # the chunk widths held bitwise to the serial line search
 CHUNK_WIDTHS = (3, 4, 8)
+# ticks per chunk of the graph driver (the JAX bench's BENCH_CHUNK)
+GRAPH_CHUNK = 10
 
 # Operations per unit of the kernel's work, counted from csrc/cilqr_kernel.cu:
 # each add, multiply, divide, compare and transcendental is one operation
@@ -740,15 +758,19 @@ class LaunchTimer:
         return [[t[i + 1][2] if i + 1 < len(t) else 0 for i in range(phases)] for t in self.ticks]
 
 
-def run_path(name, over, dtype, batch, ticks, schedule=None, modes=None):
-    """One batch of episodes through ``run_mpc_kernel`` on the card, with the
-    launch counts set to 0 just before and read just after; ``schedule``
-    holds its straggler caps, ``modes`` (None: the card's) its modes. Also
-    returns the episode's inputs."""
+def run_path(name, over, dtype, batch, ticks, schedule=None, modes=None, driver="host"):
+    """One batch of episodes on the card, with the launch counts set to 0
+    just before and read just after; ``schedule`` holds its straggler caps,
+    ``modes`` (None: the card's) its modes. ``driver``: ``"host"``, the host
+    loop ``run_mpc_kernel`` (the final duals in ALM mode); ``"scan"``,
+    ``run_mpc_kernel_scan``, every tick one graph (the final duals in ALM
+    mode); ``"chunked"``, ``run_mpc_kernel_chunked`` in chunks of
+    ``GRAPH_CHUNK`` (no duals). Also returns the episode's inputs."""
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
-    from ilqr_tpu_torch.sim.mpc import run_mpc_kernel
+    from ilqr_tpu_torch.sim.mpc import (run_mpc_kernel, run_mpc_kernel_chunked,
+                                        run_mpc_kernel_scan)
 
     st, cfg, w, x0, rows = vk.problem(name, batch, dtype, DEVICE, **over)
     sc = st.device_scenario(tick=0, dtype=dtype, device=DEVICE, batch=batch)
@@ -756,13 +778,20 @@ def run_path(name, over, dtype, batch, ticks, schedule=None, modes=None):
     check(obs.shape[1] >= ticks + cfg.N + 1, "obstacle predictions shorter than the episode")
     obs_b = obs.expand(batch, *obs.shape)
     modes = ck.resolve_modes(DEVICE) if modes is None else modes
+    alm = cfg.solve_type == "alm"
+    args = (cfg, w, x0, sc.ref_line, sc.ref_velo, obs_b, sc.road_borders, ticks)
+    kw = dict(window=384, proj_rows_per_step=rows, w_back=24, **(schedule or {}),
+              **modes._asdict())
     torch.cuda.synchronize()
     ck.launches.clear()
     t0 = time.perf_counter()
-    out = run_mpc_kernel(cfg, w, x0, sc.ref_line, sc.ref_velo, obs_b, sc.road_borders, ticks,
-                         window=384, proj_rows_per_step=rows, w_back=24,
-                         return_alm=cfg.solve_type == "alm", **(schedule or {}),
-                         **modes._asdict())
+    if driver == "host":
+        out = run_mpc_kernel(*args, return_alm=alm, **kw)
+    elif driver == "scan":
+        ego, us, stats, carry = run_mpc_kernel_scan(*args, with_carry=True, **kw)
+        out = (ego, us, stats) + (((carry[1], carry[2]),) if alm else ())
+    else:
+        out = run_mpc_kernel_chunked(*args, chunk=GRAPH_CHUNK, **kw)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     return cfg, out, total, dict(ck.launches), (w, x0, sc, obs_b, rows, modes)
@@ -811,12 +840,16 @@ def profile_run(fn):
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
     by_name = collections.Counter()
+    kernel_ms = 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+            if "cilqr_solve_kernel" in e.name:
+                kernel_ms += e.time_range.elapsed_us() / 1e3
     busy = busy_us / 1e6
     return dict(wall_s=wall, device_busy_s=busy if spans else None,
                 idle_share=1.0 - busy / wall if spans else None,
+                solve_kernel_ms=kernel_ms if spans else None,
                 top_device_ms=dict(by_name.most_common(6)))
 
 
@@ -1000,10 +1033,12 @@ def phase_main(card, launches_total):
                                                  modes=card_modes._replace(proj_fold=True))
     launches_total.update(launches)
     path_gates("main", card, cfg, out, total, launches, inputs, "_fold")
+    return first[default]["out"]
 
 
 def phase_path(path, card, launches_total):
-    """4: a path in the card's modes, and with its schedule when it has one."""
+    """4: a path in the card's modes, and with its schedule when it has one;
+    returns the episode without the schedule."""
     import torch
 
     name, over, ticks = PATHS[path]
@@ -1012,6 +1047,170 @@ def phase_path(path, card, launches_total):
     variant = path_gates(path, card, cfg, out, total, launches, inputs, "")
     if path in SCHEDULES:
         compaction_run(path, card, out, variant, launches_total)
+    return out
+
+
+def card_variant(cfg):
+    """The float32 kernel a path of ``cfg`` launches in the card's modes."""
+    import torch
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    return ck.variant(cfg, torch.float32, ck.resolve_modes(DEVICE))
+
+
+def graph_run(path, driver, schedule=None):
+    """``path`` (float32, batch 8192, the card's modes) through the graph
+    driver ``driver`` of ``run_path``: (cfg, episode, seconds, launches)."""
+    import torch
+
+    name, over, ticks = PATHS[path]
+    cfg, out, total, launches, _ = run_path(name, over, torch.float32, BATCH, ticks, schedule,
+                                            driver=driver)
+    return cfg, out, total, launches
+
+
+def graph_gates(tag, path, cfg, out, ref, launches, schedule=None):
+    """A graph driver's episode against the host loop's on the same path:
+    bitwise equal (the duals when both have them), finite, the main path
+    at its anchor, and only this path's kernels launched. Returns the
+    printable fields."""
+    import torch
+
+    variant = card_variant(cfg)
+    n = min(len(out), len(ref))
+    equal = episodes_equal(out[:n], ref[:n])
+    final_x = float(out[0][-1, :, 0].mean())
+    check(equal, f"{tag}: the graph driver's episode differs from run_mpc_kernel's")
+    check(bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()),
+          f"{tag}: non-finite episode")
+    check(launches.get(variant, 0) >= out[1].shape[0]
+          and set(launches) <= {variant, variant + "_resume"},
+          f"{tag}: launches {launches} in {out[1].shape[0]} ticks")
+    if schedule:
+        check(launches.get(variant + "_resume", 0) > 0, f"{tag}: no resume launch")
+    if path == "main":
+        check(abs(final_x - EGO_X_ANCHOR) <= EGO_X_TOL,
+              f"{tag}: final_ego_x_mean {final_x:.4f} not within {EGO_X_TOL} of {EGO_X_ANCHOR}")
+    return dict(bitwise_host_loop=equal, duals_compared=n == 4, final_ego_x_mean=final_x,
+                launches=launches)
+
+
+def abba(first, second, pairs=2):
+    """Time ``first`` and ``second`` (each returns (episode, seconds,
+    launches)) in the order first, second, second, first per two pairs:
+    [(first's seconds, second's seconds), ...] in run order, and every
+    run's launches."""
+    times, launches = [], []
+    for i in range(pairs):
+        order = (first, second) if i % 2 == 0 else (second, first)
+        got = {}
+        for fn in order:
+            _, sec, lau = fn()
+            got[fn] = sec
+            launches.append(lau)
+        times.append((got[first], got[second]))
+    return times, launches
+
+
+def phase_graph(card, launches_total, host_loop):
+    """8: the graph-captured episode program. The main path through
+    ``run_mpc_kernel_chunked`` (chunks of 10) and ``run_mpc_kernel_scan``
+    (every tick one graph), path (a) with its schedule and path (b) with
+    its duals, each bitwise equal to the host loop's episode of phases
+    3-4; the host loop against the chunked driver on the main path in
+    ABBA pairs (the graph driver must win every pair), each profiled once
+    (kernel sum, busy time, idle share against the unprofiled wall);
+    compaction off/on/on/off through the graph driver on the main path
+    (bench schedule) and path (a); then the port's bench line."""
+    import statistics
+
+    import torch
+    from ilqr_tpu_torch.apps import bench
+
+    name, over, ticks = PATHS["main"]
+    fields = {}
+    runs = {
+        "main_chunked": ("main", "chunked", None),
+        "main_scan": ("main", "scan", None),
+        "a_three_bend_schedule_scan": ("a_three_bend", "scan", SCHEDULES["a_three_bend"]),
+        "b_alm_two_borrow_scan": ("b_alm_two_borrow", "scan", None),
+        "b_alm_two_borrow_chunked": ("b_alm_two_borrow", "chunked", None),
+    }
+    for tag, (path, driver, schedule) in runs.items():
+        cfg, out, sec, launches = graph_run(path, driver, schedule)  # captures
+        cfg, again, sec2, launches2 = graph_run(path, driver, schedule)  # replays
+        launches_total.update(launches)
+        launches_total.update(launches2)
+        fields[tag] = dict(graph_gates(tag, path, cfg, out, host_loop[path], launches, schedule),
+                           first_call_s=sec, replay_s=sec2, replay_launches=launches2,
+                           replay_bitwise_first=episodes_equal(out, again))
+        check(fields[tag]["replay_bitwise_first"], f"{tag}: a replay differs from the capture")
+        if schedule is None:
+            check(launches2 == {card_variant(cfg): out[1].shape[0]},
+                  f"{tag}: replay launches {launches2} in {out[1].shape[0]} ticks")
+    say("phase8_graph_bitwise", card=card, chunk=GRAPH_CHUNK, runs=fields)
+
+    def host():
+        cfg, out, sec, launches, _ = run_path(name, over, torch.float32, BATCH, ticks)
+        launches_total.update(launches)
+        return out, sec, launches
+
+    def graph():
+        cfg, out, sec, launches = graph_run("main", "chunked")
+        launches_total.update(launches)
+        return out, sec, launches
+
+    times, run_launches = abba(host, graph)
+    prof_host = profile_run(host)
+    prof_graph = profile_run(graph)
+    walls = {"host_loop": [h for h, _ in times], "graph_chunked": [g for _, g in times]}
+    drivers = {}
+    for key, prof in (("host_loop", prof_host), ("graph_chunked", prof_graph)):
+        wall = statistics.median(walls[key])
+        busy = prof["device_busy_s"]
+        drivers[key] = dict(wall_s=walls[key], wall_median_s=wall,
+                            solves_per_s=BATCH * ticks / wall,
+                            profiled_solve_kernel_ms=prof["solve_kernel_ms"],
+                            profiled_busy_s=busy, profiled_wall_s=prof["wall_s"],
+                            idle_share_unprofiled=None if busy is None else 1.0 - busy / wall,
+                            top_device_ms=prof["top_device_ms"])
+    say("phase8_graph_vs_host_loop_main", card=card, scenario=name, ticks=ticks, batch=BATCH,
+        order="host graph graph host", pairs_s=times, run_launches=run_launches,
+        graph_wins_every_pair=all(g < h for h, g in times), drivers=drivers)
+    check(all(g < h for h, g in times),
+          f"main: the graph driver is not faster than the host loop in every pair: {times}")
+
+    # compaction through the graph driver: off/on/on/off, the first call
+    # of each captured beforehand
+    comp = {}
+    for path, driver in (("main", "chunked"), ("a_three_bend", "scan")):
+        schedule = SCHEDULES[path]
+        _, off_out, _, lau_off = graph_run(path, driver)
+        _, on_out, _, lau_on = graph_run(path, driver, schedule)
+        launches_total.update(lau_off)
+        launches_total.update(lau_on)
+        check(episodes_equal(off_out, on_out), f"{path}: compaction through the graph differs")
+
+        def off(path=path, driver=driver):
+            _, out, sec, lau = graph_run(path, driver)
+            launches_total.update(lau)
+            return out, sec, lau
+
+        def on(path=path, driver=driver, schedule=schedule):
+            _, out, sec, lau = graph_run(path, driver, schedule)
+            launches_total.update(lau)
+            return out, sec, lau
+
+        times_c, lau_c = abba(off, on)
+        comp[path] = dict(driver=driver, schedule=schedule, pairs_off_on_s=times_c,
+                          launches=lau_c, on_wins_every_pair=all(b < a for a, b in times_c))
+    say("phase8_graph_compaction", card=card, order="off on on off", **comp)
+
+    result, aux = bench.measure()
+    say("phase8_bench", line=result, **aux)
+    check(result["metric"] == "cilqr_mpc_solves_per_sec" and result["value"] > 0,
+          f"bench: {result}")
+    check(abs(aux["final_ego_x_mean"] - EGO_X_ANCHOR) <= EGO_X_TOL, f"bench: {aux}")
 
 
 def plain_episode(cfg, w, x0, sc, obs_b, rows, modes, ticks):
@@ -1183,10 +1382,11 @@ def main():
     records += [rec for path in PATHS for rec in phase_f32_path_shape(path)]
     phase_bitwise_f32()
     launches = collections.Counter()  # summed over the path runs, each counted from 0
-    phase_main(card, launches)
+    host_loop = {"main": phase_main(card, launches)}
     for path in PATHS:
         if path != "main":
-            phase_path(path, card, launches)
+            host_loop[path] = phase_path(path, card, launches)
+    phase_graph(card, launches, host_loop)
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
     repro_kernels = phase_debug_repros(card)

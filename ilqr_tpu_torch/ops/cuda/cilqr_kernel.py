@@ -40,7 +40,11 @@ torch:
 - the per-scenario window gather around the initial nearest index
   (``pack_problem``). ``start = max(argmin - w_back, 0)`` is not clamped to
   ``P - W``; indices clamp to ``P - 1``, so the tail repeats the last
-  sample and first-min ties pin the initial projection at row <= w_back;
+  sample and first-min ties pin the initial projection at row <= w_back.
+  An episode program packs what its ticks share once (``pack_episode``)
+  and builds each tick's problem straight into the packed layout
+  (``tick_problem``: a line shared by the batch is indexed, per-row lines
+  are gathered), bit for bit ``pack_problem``'s and without a host sync;
 - the obstacle pad to 1e6 when there are no obstacles;
 - the x0 packing ``[x, y, v, yaw, rb_hi, rb_lo, ref_velo, 0]``;
 - the per-step search bounds ``row_limits[k] = min(W, round_up_8(w_back +
@@ -72,9 +76,16 @@ dense arrays and resumes them where they stopped -- the kernel's resume
 entry takes the stats slab of the phase before and the iteration ``it0``
 it stopped at -- then scatters the results back. Exact: the resumed
 rollout of the carried controls is the trajectory the solve had. What the
-TPU needed and the card does not is left out: the lane interleave, the pad
-to 128 lanes and the relaunch of the whole sorted batch; only the
-stragglers are relaunched.
+TPU needed and the card does not is left out: the lane interleave and the
+pad to 128 lanes; only the stragglers are relaunched. That takes a host
+sync per phase (their count), so a captured episode runs the JAX form
+instead (``solve_packed_sorted``): every phase relaunches the whole batch,
+sorted stragglers first, and rows that stopped pass through the resume
+entry unchanged; bitwise the same result.
+
+The weights (``host_weights``), the row-limit array and the launch plan
+reach the host once, not per launch, so a launch makes no device-to-host
+copy and a CUDA graph can capture it.
 
 The kernel is built at first use with nvcc into ``ilqr_tpu_torch/_build/``
 (a shared library with a plain C interface, loaded with ctypes), under a
@@ -144,6 +155,10 @@ _WEIGHT_ORDER = (
     "alm_gamma", "max_rho", "max_mu",
 )
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+_CTYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
+# host copies of weights (``host_weights``), newest last, at most this many
+_HOST_WEIGHTS_KEPT = 32
+_host_weights: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
 _POINTS = {REAR_CENTER: "rear", GRAVITY_CENTER: "gravity"}
 _PENALTIES = ("barrier", "alm")
 
@@ -218,6 +233,41 @@ def variant(cfg: CILQRConfig, dtype: torch.dtype, modes: Modes = Modes()) -> str
     suffix = "".join(tag for tag, on in (("_dot", modes.proj_dot), ("_fold", modes.proj_fold),
                                          ("_ls", modes.ls_chunk > 0)) if on)
     return f"cilqr_solve_{dt}_{('rear', 'gravity')[gravity]}_{_PENALTIES[alm]}{suffix}"
+
+
+def host_weights(w: CILQRWeights, dtype: torch.dtype):
+    """The weights the kernel reads (``_WEIGHT_ORDER``, struct Weights in
+    the .cu source) as a ctypes array of ``dtype``, and every field of
+    ``w`` as a Python float (a dict).
+
+    The values are copied to the host once per set of weight tensors,
+    keyed by each tensor's identity and version (an in-place change bumps
+    the version), and kept with a reference to the tensors, so a launch
+    makes no device-to-host copy."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    names = [f.name for f in dataclasses.fields(w)]
+    tensors = tuple(getattr(w, name) for name in names)
+    key = tuple((id(t), t._version) for t in tensors)
+    entry = _host_weights.get(key)
+    if entry is None:
+        values = dict(zip(names, torch.stack(tensors).tolist()))
+        entry = (tensors, values, {})
+        _host_weights[key] = entry
+        while len(_host_weights) > _HOST_WEIGHTS_KEPT:
+            _host_weights.popitem(last=False)
+    _host_weights.move_to_end(key)
+    _, values, arrays = entry
+    if dtype not in arrays:
+        kernel = torch.tensor([values[f] for f in _WEIGHT_ORDER], dtype=w.dtype).to(dtype)
+        arrays[dtype] = (_CTYPES[dtype] * len(_WEIGHT_ORDER))(*kernel.tolist())
+    return arrays[dtype], values
+
+
+@functools.lru_cache(maxsize=64)
+def _limits_array(limits: tuple):
+    """The row limits as the ctypes int array the C entry reads."""
+    return (ctypes.c_int * len(limits))(*limits)
 
 
 def derive_proj_rows(target_velocity, dt, factor: float = 1.1) -> int:
@@ -317,6 +367,99 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
         row_limits=row_limits(N, W, w_back, proj_rows_per_step), mu=mu, rho=rho, modes=modes)
 
 
+@dataclasses.dataclass
+class PackedEpisode:
+    """What every tick of a batch of episodes shares, packed once in the
+    kernel's layout (``pack_episode``); ``tick_problem`` builds a tick's
+    ``PackedProblem`` from it."""
+
+    x0_rest: torch.Tensor  # (4, B): x0 rows 4-7, road borders hi / lo, ref velocity, 0
+    # the reference line's x, y, yaw: (3, P) when every row has the same
+    # line, else (3, P, B)
+    line: torch.Tensor
+    # obstacle predictions per component (M, T, B), sliced N + 1 rows a
+    # tick; with no obstacles the constant 1e6 pad, (1, N + 1, B)
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oyaw: torch.Tensor
+    sliding: bool  # whether the obstacle rows slide with the tick
+    rows: torch.Tensor  # (W, 1) window row offsets 0..W-1
+    steps: torch.Tensor  # (N + 1,) prediction row offsets 0..N
+    w_back: int
+    row_limits: tuple
+    modes: Modes
+
+
+def pack_episode(cfg: CILQRConfig, x0_b, ref_line_b, ref_velo_b, obs_full_b, road_borders_b,
+                 window: int, w_back: int = W_BACK, proj_rows_per_step: int = 0,
+                 modes: Modes = Modes()) -> PackedEpisode:
+    """The tick-invariant part of ``pack_problem`` for episodes from
+    ``x0_b`` (B, 4) over ``ref_line_b`` (B, P, 4) and ``obs_full_b`` (B, M,
+    T, 3), in the dtype and on the device of ``x0_b``: the x0 slab's rows
+    4-7, the line's columns and the obstacles per component. A line
+    expanded over the batch (stride 0, as ``ScenarioSetup.device_scenario``
+    makes it) is kept once."""
+    dtype, dev = x0_b.dtype, x0_b.device
+    B, N = x0_b.shape[0], cfg.N
+    rb = road_borders_b.to(dtype).expand(B, 2)
+    rv = ref_velo_b.to(dtype).reshape(-1).expand(B)
+    if ref_line_b.shape[0] == 1 or ref_line_b.stride(0) == 0:
+        line = ref_line_b[0, :, :3].to(dtype).T.contiguous()  # (3, P)
+    else:
+        line = ref_line_b[..., :3].to(dtype).permute(2, 1, 0).contiguous()  # (3, P, B)
+    if cfg.num_obstacles == 0:
+        obs = torch.full((3, 1, N + 1, B), 1e6, dtype=dtype, device=dev)
+    else:
+        obs = obs_full_b.to(dtype).expand(B, -1, -1, -1).permute(3, 1, 2, 0).contiguous()
+    return PackedEpisode(
+        x0_rest=torch.stack([rb[:, 0], rb[:, 1], rv, torch.zeros_like(rv)]), line=line,
+        ox=obs[0], oy=obs[1], oyaw=obs[2], sliding=cfg.num_obstacles > 0,
+        rows=torch.arange(window, device=dev)[:, None],
+        steps=torch.arange(N + 1, device=dev), w_back=w_back,
+        row_limits=row_limits(N, window, w_back, proj_rows_per_step), modes=modes)
+
+
+def window_rows(ep: PackedEpisode, ego):
+    """Each row's reference-line window around ``ego`` (4, B), the
+    kernel's (W, B) ``rx``, ``ry`` and ``ryaw``, with no host sync:
+    ``pack_problem``'s window bit for bit (the squared distance's first
+    minimum, the start ``w_back`` rows behind it clamped at 0, indices
+    past P - 1 clamped to it). A shared line is indexed by a (W, B) index;
+    per-row lines are gathered per row."""
+    P = ep.line.shape[1]
+    if ep.line.dim() == 2:
+        d2 = ((ep.line[0][None] - ego[0][:, None]) ** 2
+              + (ep.line[1][None] - ego[1][:, None]) ** 2)  # (B, P)
+        nearest = torch.argmin(d2, dim=1)
+    else:
+        d2 = (ep.line[0] - ego[0]) ** 2 + (ep.line[1] - ego[1]) ** 2  # (P, B)
+        nearest = torch.argmin(d2, dim=0)
+    start = torch.clamp_min(nearest - ep.w_back, 0)
+    idx = torch.clamp_max(start + ep.rows, P - 1)  # (W, B)
+    if ep.line.dim() == 2:
+        win = ep.line[:, idx]
+    else:
+        win = torch.gather(ep.line, 1, idx.expand(3, -1, -1))
+    return win[0], win[1], win[2]
+
+
+def tick_problem(ep: PackedEpisode, ego, t, uinit, mu=None, rho=None) -> PackedProblem:
+    """The packed problem of the tick whose obstacle predictions start at
+    row ``t`` (an int or a 0-d integer tensor), from ego states ``ego``
+    (4, B), controls ``uinit`` (2, N, B) and, in ALM mode, duals ``mu``
+    (8 + 2M, N, B) and ``rho`` (B,) (None: the cold reset). Equal to
+    ``pack_problem`` of the same tick bit for bit; makes no host sync."""
+    rx, ry, ryaw = window_rows(ep, ego)
+    if ep.sliding:
+        at = ep.steps + t
+        ox, oy, oyaw = (a.index_select(1, at) for a in (ep.ox, ep.oy, ep.oyaw))
+    else:
+        ox, oy, oyaw = ep.ox, ep.oy, ep.oyaw
+    return PackedProblem(x0=torch.cat([ego, ep.x0_rest]), uinit=uinit, rx=rx, ry=ry,
+                         ryaw=ryaw, ox=ox, oy=oy, oyaw=oyaw, row_limits=ep.row_limits,
+                         mu=mu, rho=rho, modes=ep.modes)
+
+
 def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
                     work: Optional[dict] = None,
                     max_iter: Optional[int] = None) -> PackedSolution:
@@ -341,7 +484,8 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     resume = None
     if p.stats is not None:  # iterations and statuses are stored as floats
         resume = ResumeState(p.it0, p.stats[0].round().to(torch.int32),
-                             p.stats[1].round().to(torch.int32), p.stats[5])
+                             p.stats[1].round().to(torch.int32), p.stats[5],
+                             p.stats[2] > 0.5, p.stats[3] > 0.5)
     check_modes(p.modes)
     u, x, st, rho, mu = solve_from_controls(cfg, w, p.x0[:4].T, p.uinit.permute(2, 1, 0),
                                             scenario, p.rho, mu0, row_limits=limits,
@@ -439,12 +583,14 @@ def region_bytes(N: int, M: int, R: int, dtype: torch.dtype, modes: Modes) -> in
     return -(-floats * size // 16) * 16
 
 
+@functools.lru_cache(maxsize=64)
 def launch_plan(B: int, N: int, M: int, R: int, dtype: torch.dtype,
                 modes: Modes) -> LaunchPlan:
     """The launch of a batch of B solves: a block of one warp per scenario
     (lane k owns horizon step k, so N + 1 <= WARP), each block
     ``region_bytes`` of dynamic shared memory. Raises when the horizon
-    exceeds a warp or the block's shared memory exceeds MAX_SHARED_BYTES."""
+    exceeds a warp or the block's shared memory exceeds MAX_SHARED_BYTES.
+    Computed once per shape."""
     check_modes(modes)
     if N + 1 > MAX_STEPS:
         raise ValueError(f"N={N} exceeds the kernel's horizon bound {MAX_STEPS - 1}")
@@ -512,7 +658,8 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     """Check ``p`` and allocate the outputs (and the modes' scratch) of a
     solve of iterations [p.it0, max_iter) (``cfg.max_iter`` when None)
     on ``p``'s device; return the C entry's arguments. Raises on anything
-    the kernel lacks."""
+    the kernel lacks. Makes no device-to-host copy (the weights come from
+    ``host_weights``), so a launch can be captured in a CUDA graph."""
     dtype, dev = p.x0.dtype, p.x0.device
     name = variant(cfg, dtype, p.modes) + ("" if p.stats is None else "_resume")
     _, gravity, alm = instantiation(cfg, dtype, p.modes)
@@ -537,10 +684,8 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     u = torch.empty((2, N, B), dtype=dtype, device=dev)
     x = torch.empty((4, N + 1, B), dtype=dtype, device=dev)
     stats = torch.empty((6, B), dtype=dtype, device=dev)
-    scalar = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-    wvals = torch.stack([getattr(w, f) for f in _WEIGHT_ORDER]).to(dtype).tolist()
-    wts = (scalar * len(wvals))(*wvals)
-    lims = (ctypes.c_int * (N + 1))(*p.row_limits)
+    wts = host_weights(w, dtype)[0]
+    lims = _limits_array(tuple(p.row_limits))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -622,6 +767,19 @@ def resume_problem(p: PackedProblem, out: PackedSolution, rows: torch.Tensor,
         stats=take(out.stats), it0=it0)
 
 
+def _phase_solver(p: PackedProblem, solve=None, work: Optional[dict] = None):
+    """``solve`` when given, else what solves a phase of ``p``: the kernel
+    on CUDA tensors, the plain version on CPU tensors (``work`` as in
+    ``cilqr_solve_ref``)."""
+    if solve is not None:
+        return solve
+    if p.x0.device.type == "cuda":
+        return cilqr_solve_kernel
+    if p.x0.device.type == "cpu":
+        return functools.partial(cilqr_solve_ref, work=work)
+    raise ValueError(f"unsupported device {p.x0.device}")
+
+
 def solve_packed(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem, straggler_cap=0,
                  work: Optional[dict] = None, solve=None) -> PackedSolution:
     """Solve a packed batch: the kernel on CUDA tensors (one launch per
@@ -632,12 +790,7 @@ def solve_packed(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem, straggler_
     the result equals a one-phase solve bit for bit. ``solve(cfg, w, p,
     max_iter=)`` replaces the phase's solver (a test's build of the
     kernel)."""
-    if solve is None and p.x0.device.type == "cuda":
-        solve = cilqr_solve_kernel
-    elif solve is None and p.x0.device.type == "cpu":
-        solve = functools.partial(cilqr_solve_ref, work=work)
-    elif solve is None:
-        raise ValueError(f"unsupported device {p.x0.device}")
+    solve = _phase_solver(p, solve, work)
     schedule = straggler_schedule(straggler_cap, cfg.max_iter)
     out = solve(cfg, w, p, max_iter=schedule[0])
     for it0, cap in zip(schedule, schedule[1:]):
@@ -648,6 +801,41 @@ def solve_packed(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem, straggler_
         out = PackedSolution(*(None if full is None else full.index_copy(-1, rows, sub)
                                for full, sub in zip(out, part)))
     return out
+
+
+def solve_packed_sorted(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
+                        straggler_cap=0, solve=None) -> PackedSolution:
+    """``solve_packed`` as the JAX package runs it inside one program
+    (ilqr_tpu/ops/pallas/cilqr_kernel.py:1622-1641), with no host sync:
+    after each phase a stable argsort of the done flags puts the rows
+    still running first, the whole batch is permuted and relaunched
+    through the resume entry (rows that stopped pass through it
+    unchanged), and the inverse permutation restores the order at the
+    end. Every phase runs, so a graph can capture it. Bitwise equal to
+    ``solve_packed``. ``solve`` as there."""
+    solve = _phase_solver(p, solve)
+    schedule = straggler_schedule(straggler_cap, cfg.max_iter)
+    out = solve(cfg, w, p, max_iter=schedule[0])
+    if len(schedule) == 1:
+        return out
+    order = torch.arange(p.x0.shape[1], device=p.x0.device)
+    for it0, cap in zip(schedule, schedule[1:]):
+        done = ((out.stats[2] > 0.5) | (out.stats[3] > 0.5)).to(torch.int32)
+        perm = torch.argsort(done, stable=True)  # stragglers first, order kept
+        order = order[perm]
+        p = resume_problem(p, out, perm, it0)
+        out = solve(cfg, w, p, max_iter=cap)
+    inv = torch.argsort(order)
+    return PackedSolution(*(None if t is None else t.index_select(-1, inv) for t in out))
+
+
+def unpack_stats(stats) -> SolveStats:
+    """The ``SolveStats`` of stats slabs (..., 6, B) (iterations and
+    statuses are stored as floats); cost and lambda are views."""
+    iters, status, converged, overflow, cost, lamb = stats.unbind(-2)
+    return SolveStats(iters=iters.round().to(torch.int32), status=status.round().to(torch.int32),
+                      converged=converged > 0.5, lamb_overflow=overflow > 0.5,
+                      final_cost=cost, final_lamb=lamb)
 
 
 def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenario,
@@ -686,15 +874,7 @@ def cilqr_solve_cuda(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b: Scenar
     p = pack_problem(cfg, x0_b, scenario_b, window, u_init, w_back, proj_rows_per_step,
                      alm_mu0, alm_rho0, modes)
     out = solve_packed(cfg, w, p, straggler_cap)
-    stats = out.stats
-    result = (out.u.permute(2, 1, 0), out.x.permute(2, 1, 0), SolveStats(
-        iters=stats[0].round().to(torch.int32),
-        status=stats[1].round().to(torch.int32),
-        converged=stats[2] > 0.5,
-        lamb_overflow=stats[3] > 0.5,
-        final_cost=stats[4],
-        final_lamb=stats[5],
-    ))
+    result = (out.u.permute(2, 1, 0), out.x.permute(2, 1, 0), unpack_stats(out.stats))
     if not return_alm:
         return result
     return result + ((out.mu[:cfg.num_constraints].permute(2, 1, 0), out.rho),)

@@ -159,14 +159,18 @@ def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
 
 class ResumeState(NamedTuple):
     """Where a solve stopped, to restart it there (straggler compaction):
-    the next iteration ``it0`` and each row's iterations, status and
-    lambda so far. The rows are neither converged nor overflowed; their
-    controls and ALM duals come in as ``u0`` and ``alm_mu0``/``alm_rho0``."""
+    the next iteration ``it0`` and each row's iterations, status, lambda
+    and stop flags so far. The rows' controls and ALM duals come in as
+    ``u0`` and ``alm_mu0``/``alm_rho0``. A row that stopped (converged or
+    overflowed) passes through unchanged, as the kernel's resume entry
+    passes it."""
 
     it0: int
     iters: torch.Tensor  # (B,) int32
     status: torch.Tensor  # (B,) int32
     lamb: torch.Tensor  # (B,)
+    converged: torch.Tensor  # (B,) bool
+    overflow: torch.Tensor  # (B,) bool
 
 
 def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Scenario,
@@ -211,11 +215,11 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
         lamb = w.init_lamb.expand(Bn).clone()
         status = torch.zeros(Bn, dtype=torch.int32, device=dev)
         itr = torch.zeros(Bn, dtype=torch.int32, device=dev)
+        converged = torch.zeros(Bn, dtype=torch.bool, device=dev)
+        overflow = torch.zeros_like(converged)
     else:
-        it0, itr, status, lamb = resume.it0, resume.iters, resume.status, resume.lamb
-    done = torch.zeros(Bn, dtype=torch.bool, device=dev)
-    converged = torch.zeros_like(done)
-    overflow = torch.zeros_like(done)
+        it0, itr, status, lamb, converged, overflow = resume
+    done = converged | overflow
 
     def code(s):
         return torch.tensor(s, dtype=torch.int32, device=dev)
