@@ -8,8 +8,9 @@ arguments), the thread-per-scenario kernel it replaced (for comparison
 only) and the ``tools/debug`` repro kernels from this checkout's sources,
 one nvcc per source, started together; holds every kernel against its
 plain PyTorch version, and drives the port's paths through it with
-``run_mpc_kernel`` (the host loop) and the graph-captured episode program
-(``run_mpc_kernel_chunked`` / ``run_mpc_kernel_scan``, phase 8),
+``run_mpc_kernel`` (the host loop), the graph-captured episode program
+(``run_mpc_kernel_chunked`` / ``run_mpc_kernel_scan``, phase 8) and the
+sweep entry point with the parallel layer (``apps.sweep``, phase 9),
 float32, batch 8192 perturbed starts (seed 0), in the modes the card
 resolves (``ck.resolve_modes``: the dot-form projection and chunks of 4
 alphas, as the JAX package ran its main path on its chip):
@@ -123,6 +124,18 @@ non-zero and prints no final line:
    off through the graph driver on the main path (the bench's schedule)
    and path (a) ((8, 16, 32)), bitwise equal; and the line of
    ``python -m ilqr_tpu_torch.apps.bench`` (mean final ego x 52.70 m);
+9. the sweep entry point and the parallel layer: ``apps.sweep.main`` on
+   the main path's scenario (batch 8192, 4 cold steps, kernel engine,
+   window 384, its default schedule), each step's stats bitwise equal to
+   ``cilqr_solve_cuda`` called directly on that step's starts, one launch
+   a step, and ``cold_solves_per_sec`` (the mean of steps 1-3); on step
+   0's starts the schedule (8, 16, 32) bitwise equal to one launch and
+   both timed off, on, on, off; one step under ``torch.profiler`` (device
+   busy time, idle share, kernel ms); a one-rank NCCL group (a file rendezvous,
+   no socket) whose all-reduced ``sharded_kernel_solve_fn`` summary equals
+   the local ``aggregate_stats``; and ``run_mpc_chunked_sharded`` on a
+   one-card mesh bitwise equal to ``run_mpc_kernel_chunked`` over 30 ticks
+   of the main path;
 7. the ``tools/debug`` repro kernels: each flow once with the counts at 0,
    then each kernel bitwise equal to its plain version and to the repro's
    closed form, with its time per call (200 calls between CUDA events,
@@ -220,6 +233,9 @@ EPISODE_F64_SCHEDULE = dict(straggler_cap=F64_CAPS)
 CHUNK_WIDTHS = (3, 4, 8)
 # ticks per chunk of the graph driver (the JAX bench's BENCH_CHUNK)
 GRAPH_CHUNK = 10
+# phase 9: the sweep's steps, and the sharded episode's ticks (cut from 120)
+SWEEP_STEPS = 4
+SWEEP_EPISODE_TICKS = 30
 
 # Operations per unit of the kernel's work, counted from csrc/cilqr_kernel.cu:
 # each add, multiply, divide, compare and transcendental is one operation
@@ -1213,6 +1229,143 @@ def phase_graph(card, launches_total, host_loop):
     check(abs(aux["final_ego_x_mean"] - EGO_X_ANCHOR) <= EGO_X_TOL, f"bench: {aux}")
 
 
+def phase_sweep(card, launches_total):
+    """9: the sweep entry point and the parallel layer. ``apps.sweep.main``
+    on the main path's scenario (batch 8192, 4 steps, kernel engine, window
+    384, its default schedule): each step's stats bitwise equal to
+    ``cilqr_solve_cuda`` called directly on the step's starts, one launch a
+    step; on step 0's starts the bench's schedule (8, 16, 32) bitwise equal
+    to one launch, and the two timed off, on, on, off (5 solves each); one
+    step profiled; a one-rank NCCL group (file rendezvous):
+    ``sharded_kernel_solve_fn``'s all-reduced summary equal to the local
+    ``aggregate_stats``; and
+    ``run_mpc_chunked_sharded`` on a one-card mesh bitwise equal to
+    ``run_mpc_kernel_chunked`` on the main path (30 ticks). Every launch of
+    the phase counts in ``launches_total``."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from ilqr_tpu_torch.apps import sweep
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.parallel import (aggregate_stats, make_mesh, run_mpc_chunked_sharded,
+                                         sharded_kernel_solve_fn)
+    from ilqr_tpu_torch.parallel.mesh import initialize_distributed
+    from ilqr_tpu_torch.sim.mpc import run_mpc_kernel_chunked
+
+    def fields(stats):
+        return [getattr(stats, f.name) for f in dataclasses.fields(stats)]
+
+    t_phase = time.perf_counter()
+    name, over, _ = PATHS["main"]
+    steps = []
+    torch.cuda.synchronize()
+    ck.launches.clear()
+    rc = sweep.main(["-c", str(REPO / "configs" / f"{name}.yaml"), "--batch", str(BATCH),
+                     "--steps", str(SWEEP_STEPS), "--engine", "kernel", "--window", "384",
+                     "--device", DEVICE],
+                    on_step=lambda step, stats, summary, sec: steps.append(
+                        (step, [t.clone() for t in fields(stats)], summary, sec)))
+    torch.cuda.synchronize()
+    sweep_launches = dict(ck.launches)
+    check(rc == 0 and [s[0] for s in steps] == list(range(SWEEP_STEPS)),
+          f"sweep: rc {rc}, steps {[s[0] for s in steps]}")
+    st, cfg, w, _, rows = vk.problem(name, BATCH, torch.float32, DEVICE)
+    sc = st.device_scenario(tick=0, dtype=torch.float32, device=DEVICE, batch=BATCH)
+    kw = dict(window=384, proj_rows_per_step=rows)
+    default = sweep.parse_caps(sweep.DEFAULT_STRAGGLER_CAP)
+
+    def starts(step):
+        return torch.as_tensor(sweep.step_starts(st.ego_x0, BATCH, step), dtype=torch.float32,
+                               device=DEVICE)
+
+    def direct(step, caps=default):
+        return ck.cilqr_solve_cuda(cfg, w, starts(step), sc, straggler_cap=caps, **kw)
+
+    stats_bitwise = [all(torch.equal(a, b) for a, b in zip(got, fields(direct(step)[2])))
+                     for step, got, _, _ in steps]
+    variant = card_variant(cfg)
+    rates = [BATCH / sec for _, _, _, sec in steps]
+
+    one, comp = direct(0, 0), direct(0, COLD_CAPS)
+    comp_bitwise = all(torch.equal(a, b) for a, b in zip(
+        list(one[:2]) + fields(one[2]), list(comp[:2]) + fields(comp[2])))
+
+    def timed(caps, reps=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            direct(0, caps)
+        torch.cuda.synchronize()
+        return None, (time.perf_counter() - t0) / reps, None
+
+    pairs, _ = abba(lambda: timed(0), lambda: timed(COLD_CAPS))
+    winner = ("one_launch" if all(a < b for a, b in pairs)
+              else "compaction" if all(b < a for a, b in pairs) else "split")
+
+    # one sweep step (the sharded solve and its summary on the host) under
+    # the profiler: where its time goes
+    step_fn = sharded_kernel_solve_fn(make_mesh(), cfg, straggler_cap=default, **kw)
+    x0_1 = starts(1)
+    step_fn(w, x0_1, sc)
+    prof = profile_run(lambda: torch.stack(list(step_fn(w, x0_1, sc)[3].values())).tolist())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", num_processes=1, process_id=0)
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh()
+            _, _, nccl_stats, summary = sharded_kernel_solve_fn(
+                mesh, cfg, straggler_cap=default, **kw)(w, starts(0), sc)
+            local = aggregate_stats(nccl_stats)
+            nccl_equal = set(summary) == set(local) and all(
+                torch.equal(summary[k], local[k]) for k in local)
+            nccl_summary = {k: float(v) for k, v in summary.items()}
+        finally:
+            dist.destroy_process_group()
+
+    st_m, cfg_m, w_m, x0_m, rows_m = vk.problem(name, BATCH, torch.float32, DEVICE, **over)
+    sc_m = st_m.device_scenario(tick=0, dtype=torch.float32, device=DEVICE, batch=BATCH)
+    obs = torch.as_tensor(st_m.obs_preds_array(), device=DEVICE).to(torch.float32)
+    args = (x0_m, sc_m.ref_line, sc_m.ref_velo, obs.expand(BATCH, *obs.shape), sc_m.road_borders)
+    ep_kw = dict(chunk=GRAPH_CHUNK, window=384, proj_rows_per_step=rows_m, w_back=24)
+    sharded = run_mpc_chunked_sharded(make_mesh(), cfg_m, w_m, *args, ticks=SWEEP_EPISODE_TICKS,
+                                      **ep_kw)
+    single = run_mpc_kernel_chunked(cfg_m, w_m, *args, SWEEP_EPISODE_TICKS, **ep_kw)
+    episode_equal = episodes_equal(sharded, single)
+    torch.cuda.synchronize()
+    phase_launches = dict(ck.launches)
+    launches_total.update(phase_launches)
+    say("phase9_sweep", card=card, scenario=name, batch=BATCH, steps=SWEEP_STEPS,
+        default_straggler_cap=sweep.DEFAULT_STRAGGLER_CAP, variant=variant,
+        step_seconds=[sec for _, _, _, sec in steps], step_solves_per_s=rates,
+        cold_solves_per_sec=statistics.mean(rates[1:]),
+        mean_iters=[s["mean_iters"] for _, _, s, _ in steps],
+        converged_frac=[s["converged_frac"] for _, _, s, _ in steps],
+        sweep_launches=sweep_launches, stats_bitwise_direct=stats_bitwise,
+        compaction=dict(caps=COLD_CAPS, bitwise_one_launch=comp_bitwise,
+                        max_iters=int(one[2].iters.max()), order="off on on off",
+                        pairs_off_on_s=[(a, b) for a, b in pairs], wins_both_pairs=winner),
+        profiled_step=prof,
+        nccl=dict(backend=backend, world_size=1, summary_equals_local=nccl_equal,
+                  summary=nccl_summary),
+        sharded_episode=dict(ticks=SWEEP_EPISODE_TICKS, mesh_devices=1,
+                             bitwise_run_mpc_kernel_chunked=episode_equal,
+                             final_ego_x_mean=float(sharded[0][-1, :, 0].mean())),
+        launches=phase_launches, phase_s=time.perf_counter() - t_phase)
+    check(sweep_launches.get(variant) == SWEEP_STEPS
+          and set(sweep_launches) <= {variant, variant + "_resume"},
+          f"sweep: launches {sweep_launches} in {SWEEP_STEPS} steps")
+    check(all(stats_bitwise), f"sweep: stats differ from direct solves: {stats_bitwise}")
+    check(comp_bitwise, f"sweep: compaction {COLD_CAPS} differs from one launch")
+    check(backend == "nccl" and nccl_equal, f"sweep: {backend} summary {nccl_summary} differs "
+          "from the local aggregate")
+    check(episode_equal, "sweep: run_mpc_chunked_sharded differs from run_mpc_kernel_chunked")
+
+
 def plain_episode(cfg, w, x0, sc, obs_b, rows, modes, ticks):
     """The same episodes through the plain version on the card, written
     out independently of ``run_mpc_kernel``: each tick solves on the
@@ -1387,6 +1540,7 @@ def main():
         if path != "main":
             host_loop[path] = phase_path(path, card, launches)
     phase_graph(card, launches, host_loop)
+    phase_sweep(card, launches)
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
     repro_kernels = phase_debug_repros(card)
