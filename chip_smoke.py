@@ -141,7 +141,37 @@ non-zero and prints no final line:
    closed form, with its time per call (200 calls between CUDA events,
    the launch path included), its device time (``torch.profiler``'s
    device spans of 200 calls) and the same two for the plain version and
-   the library call.
+   the library call;
+10. the demos and the eager solver's options, plain PyTorch in float64 on
+   the card (no kernel of this script), each held to the port's own CPU
+   run: (a) ``lqr_demo_batch_x0`` over 8192 seeded starts of the reference
+   system, the first 16 rows equal to a CPU run within 1e-10 (relative
+   and absolute) and P* within 1e-6 of a numpy fixed-point oracle; (b)
+   the tracking ``simulate`` over 1024 seeded starts, row 0 the demo's
+   zero start reaching its goal on the CPU run's tick, steering within
+   max_steer; (c) the demo CILQR ``solve`` over 4096 seeded starts
+   (max_iter 50), row 0 against the CPU solve (equal iterations and
+   convergence, J and x within the bars of
+   ``tests/test_torch_cilqr_demo.py``), the last row a copy of row 0 and
+   bitwise equal to it; (d) ``riccati_impl="pscan"`` against ``"scan"``
+   on scenario_two_straight, batch 1024, cold: at lambda 0, N = 12,
+   max_iter 20 every row that converges in either ends on the same
+   trajectory in both (u and x within rtol 1e-6 / atol 1e-8), row 0 (the
+   unperturbed start of ``tests/test_riccati.py:112``) also with equal
+   iterations and status, and the rows whose exit differs are listed
+   (their convergence test, |decay| against the threshold at the solution,
+   falls the other way); at the shipped lambda both converge on comparable
+   shares of rows (the criteria of ``tests/test_riccati.py:147``); each
+   solve's wall printed (lambda 0 in the order scan, pscan, pscan, scan
+   after a warm-up of each), and the two backward passes alone on the
+   shipped problem's first iteration timed scan, pscan, pscan, scan (CUDA
+   events);
+   (e) ``projection="hier"`` bitwise equal to ``"exact"`` in the eager
+   solve on all four scenarios (batch 64, cold, one process a scenario);
+   (f) the three demo apps (``lqr_demo``, ``lqr_tracking``,
+   ``cilqr_demo``) with ``--no-viz`` as subprocesses on the card, beside
+   (e): each exits 0 and prints its lines, with the CPU runs' numbers. No
+   matplotlib is imported.
 
 Cut to stay under eight minutes: the host loop's off/on/on/off compaction
 timing of the main path and path (a) is gone (phase 8 times compaction
@@ -167,6 +197,7 @@ import json
 import re
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -1522,6 +1553,387 @@ def phase_debug_repros(card):
     return kernels
 
 
+# phase 10: batches of the demos and the eager options (float64)
+LQR_BATCH = 8192
+TRACKING_BATCH = 1024
+DEMO_BATCH = 4096
+PSCAN_BATCH = 1024
+HIER_BATCH = 64
+BACKWARD_REPS = 20
+CPU_ROWS = 16  # rows of (a) run again on the CPU
+LQR_RTOL = LQR_ATOL = 1e-10
+# the full demo solve's bars, as tests/test_torch_cilqr_demo.py states them
+DEMO_J_RTOL = 1e-3
+DEMO_X_ATOL = 0.03
+SCENARIOS = ("scenario_two_straight", "scenario_two_borrow", "scenario_three_straight",
+             "scenario_three_bend")
+APPS_TIMEOUT_S = 300
+
+
+def oracle_dare(A, B, Q, R, max_iter=150, eps=0.01):
+    """The fixed-point iteration in numpy (tests/test_demos.py:21)."""
+    import numpy as np
+
+    p = Q
+    for _ in range(max_iter):
+        p_next = A.T @ p @ A - A.T @ p @ B @ np.linalg.inv(R + B.T @ p @ B) @ B.T @ p @ A + Q
+        if np.abs(p_next - p).max() < eps:
+            return p_next
+        p = p_next
+    return p_next
+
+
+def event_ms(fn, reps):
+    """Milliseconds a call of fn over reps calls between CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_cuda(fn):
+    """(fn(), seconds), the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_err(a, b):
+    """max |a - b| / (1 + |b|): under e, a and b are allclose with rtol = atol = e."""
+    return float(((a.cpu() - b).abs() / (1.0 + b.abs())).max())
+
+
+def first_reached(reached):
+    """Index of each row's first reached tick (-1: never)."""
+    import torch
+
+    return torch.where(reached.any(-1), reached.int().argmax(-1), torch.full_like(
+        reached[..., 0], -1, dtype=torch.int64))
+
+
+def demo_lqr():
+    """10a: ``lqr_demo_batch_x0`` over seeded starts of the reference system."""
+    import numpy as np
+    import torch
+
+    from ilqr_tpu_torch.solvers.lqr import lqr_demo_batch_x0
+
+    f64 = torch.float64
+    A0 = np.array([[1.95, -0.025, -1.6], [1.6, 1.1, -3.2], [0.425, 0.185, 0.3]])
+    B0 = np.array([[0.0, 1.0], [1.0, 1.0], [0.0, 1.0]])
+    system = [torch.as_tensor(a, dtype=f64) for a in (A0, B0, np.eye(3), np.eye(2))]
+    x0 = torch.randn((LQR_BATCH, 3), generator=torch.Generator().manual_seed(10), dtype=f64)
+    x0[0] = torch.tensor([1.0, 2.0, 3.0])  # the demo's start
+    (P, K, ol, cl), wall = timed_cuda(lambda: lqr_demo_batch_x0(
+        *(a.to(DEVICE) for a in system), x0.to(DEVICE), steps=50))
+    cpu = lqr_demo_batch_x0(*system, x0[:CPU_ROWS], steps=50)
+    pairs = dict(P=(P, cpu[0]), K=(K, cpu[1]), open_x=(ol.x, cpu[2].x), closed_x=(cl.x, cpu[3].x),
+                 closed_u=(cl.u, cpu[3].u), u_norm=(cl.u_norm, cpu[3].u_norm))
+    err = {k: rel_err(a[:CPU_ROWS], b) for k, (a, b) in pairs.items()}
+    oracle_err = float(np.abs(P[0].cpu().numpy() - oracle_dare(A0, B0, np.eye(3), np.eye(2))).max())
+    rows_same = bool((P == P[:1]).all() and (K == K[:1]).all())
+    rec = dict(batch=LQR_BATCH, wall_s=wall, cpu_rows=CPU_ROWS, rel_err=err,
+               oracle_err=oracle_err, open_loop_end=float(ol.x[0, -1].abs().max()),
+               closed_loop_end=float(cl.x[0, -1].abs().max()))
+    say("phase10a_lqr", **rec)
+    check(all(e <= LQR_RTOL for e in err.values()), f"(a) lqr_demo on the card differs from "
+          f"the CPU run: {err}")
+    check(oracle_err < 1e-6 and rows_same, f"(a) P* {oracle_err} from the numpy oracle, rows "
+          f"identical {rows_same}")
+    check(rec["open_loop_end"] > 1e3 and rec["closed_loop_end"] < 1e-2,
+          "(a) the open loop must diverge and the closed loop settle from the demo's start")
+    return rec
+
+
+def demo_tracking():
+    """10b: the tracking ``simulate`` over seeded starts, row 0 the demo's."""
+    import torch
+
+    from ilqr_tpu_torch.solvers import lqr_tracking as tracking
+
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(11)
+    x0 = torch.zeros((TRACKING_BATCH, 4), dtype=f64)
+    x0[1:, :2] = 0.5 * torch.randn((TRACKING_BATCH - 1, 2), generator=gen, dtype=f64)
+    x0[1:, 2] = 0.1 * torch.randn((TRACKING_BATCH - 1,), generator=gen, dtype=f64)
+    course, goal = tracking.make_demo_course(device=DEVICE)
+    p = tracking.default_params(device=DEVICE)
+    (states, controls, reached), wall = timed_cuda(
+        lambda: tracking.simulate(p, course, goal, x0=x0.to(DEVICE)))
+    s0, _, r0 = tracking.simulate(tracking.default_params(), tracking.make_demo_course()[0], goal)
+    ticks = first_reached(reached.cpu())
+    rec = dict(batch=TRACKING_BATCH, wall_s=wall, reached=int((ticks >= 0).sum()),
+               first_tick_min_max=[int(ticks.min()), int(ticks.max())],
+               row0_tick=int(ticks[0]), row0_tick_cpu=int(first_reached(r0)),
+               row0_state_err=float((states[0].cpu() - s0).abs().max()),
+               steer_max=float(controls[..., 1].abs().max()), max_steer=float(p.max_steer))
+    say("phase10b_tracking", **rec)
+    check(rec["row0_tick"] == rec["row0_tick_cpu"] >= 0,
+          f"(b) row 0 reached its goal at tick {rec['row0_tick']}, on the CPU {rec['row0_tick_cpu']}")
+    check(rec["steer_max"] <= rec["max_steer"] + 1e-9 and bool(states.isfinite().all()),
+          f"(b) steering {rec['steer_max']} above max_steer or non-finite states")
+    return rec
+
+
+def demo_cilqr():
+    """10c: the demo CILQR over seeded starts; the last row repeats row 0."""
+    import torch
+
+    from ilqr_tpu_torch.apps.cilqr_demo import batch_starts
+    from ilqr_tpu_torch.solvers import cilqr_demo as demo
+
+    f64 = torch.float64
+    p, x0, ref, ref_velo, obs_attrs, obs_preds = demo.demo_scenario(f64, DEVICE)
+    starts = batch_starts(x0, DEMO_BATCH)
+    starts[0] = starts[-1] = x0
+    res, wall = timed_cuda(lambda: demo.solve(p, starts, ref, ref_velo, obs_attrs, obs_preds,
+                                              max_iter=50))
+    cpu = demo.solve(*demo.demo_scenario(f64), max_iter=50)
+    rec = dict(batch=DEMO_BATCH, wall_s=wall, row0_iters=int(res.iters[0]),
+               row0_converged=bool(res.converged[0]), row0_J=float(res.J[0]),
+               cpu_iters=int(cpu.iters), cpu_converged=bool(cpu.converged), cpu_J=float(cpu.J),
+               J_rel=abs(float(res.J[0]) - float(cpu.J)) / abs(float(cpu.J)),
+               x_err=float((res.x[0].cpu() - cpu.x).abs().max()),
+               twins_bitwise=all(torch.equal(t[0], t[-1]) for t in res),
+               converged_frac=float(res.converged.double().mean()),
+               mean_iters=float(res.iters.double().mean()))
+    say("phase10c_cilqr_demo", **rec)
+    check(rec["row0_iters"] == rec["cpu_iters"] and rec["row0_converged"] == rec["cpu_converged"],
+          f"(c) row 0's exit differs from the CPU solve's")
+    check(rec["J_rel"] <= DEMO_J_RTOL and rec["x_err"] <= DEMO_X_ATOL,
+          f"(c) row 0 J off by {rec['J_rel']} (relative), x by {rec['x_err']} m")
+    check(rec["twins_bitwise"], "(c) identical rows of the batch differ")
+    return rec, cpu
+
+
+def demo_pscan():
+    """10d: ``riccati_impl="pscan"`` against ``"scan"`` in the eager solve."""
+    import torch
+
+    from ilqr_tpu_torch.config import GlobalConfig
+    from ilqr_tpu_torch.models.bicycle import kinematic_jacobians, rollout
+    from ilqr_tpu_torch.ops.cost import cost_and_derivatives
+    from ilqr_tpu_torch.ops.riccati import backward_pass
+    from ilqr_tpu_torch.ops.riccati_pscan import parallel_lqr_backward
+    from ilqr_tpu_torch.sim.scenario import build_scenario_setup, perturbed_initial_states
+    from ilqr_tpu_torch.solvers.cilqr import solve
+    from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
+
+    f64 = torch.float64
+    gc = GlobalConfig.from_file(str(REPO / "configs" / "scenario_two_straight.yaml"))
+    st = build_scenario_setup(gc)
+    starts = torch.as_tensor(perturbed_initial_states(st.ego_x0, PSCAN_BATCH, seed=0), dtype=f64)
+    starts[0] = torch.as_tensor(st.ego_x0)  # the start of tests/test_riccati.py:112
+
+    def run(impl, weights, N=None, max_iter=None):
+        base = CILQRConfig.from_global_config(
+            gc, **({} if max_iter is None else dict(max_iter=max_iter)))
+        cfg = dataclasses.replace(base, N=N or base.N, use_last_solution=False,
+                                  riccati_impl=impl)
+        sc = st.device_scenario(tick=0, horizon=cfg.N, dtype=f64, device=DEVICE,
+                                batch=PSCAN_BATCH)
+        return timed_cuda(lambda: solve(cfg, weights, starts.to(DEVICE), sc))
+
+    w0 = CILQRWeights.from_global_config(gc, f64, DEVICE, init_lamb=0.0)
+    w = CILQRWeights.from_global_config(gc, f64, DEVICE)
+
+    # the two backward passes alone on the shipped problem's first
+    # iteration, scan pscan pscan scan, CUDA events over BACKWARD_REPS calls
+    cfg = dataclasses.replace(CILQRConfig.from_global_config(gc), use_last_solution=False)
+    sc = st.device_scenario(tick=0, dtype=f64, device=DEVICE, batch=PSCAN_BATCH)
+    x0 = starts.to(DEVICE)
+    u0 = x0.new_zeros((PSCAN_BATCH, cfg.N, 2))
+    x = rollout(x0, u0, w.dt, w.wheelbase, cfg.reference_point)
+    _, der = cost_and_derivatives(cfg, w, u0, x, sc)
+    A, Bm = kinematic_jacobians(x[:, :-1], u0, w.dt, w.wheelbase, cfg.reference_point)
+    lamb = w.init_lamb.expand(PSCAN_BATCH)
+    passes = dict(
+        scan=lambda: backward_pass(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb),
+        pscan=lambda: parallel_lqr_backward(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu,
+                                            lamb=lamb))
+    backward_ms = {"scan": [], "pscan": []}
+    for impl in passes:
+        passes[impl]()  # warm-up
+    for impl in ("scan", "pscan", "pscan", "scan"):
+        backward_ms[impl].append(event_ms(passes[impl], BACKWARD_REPS))
+
+    # the solves, each kind warmed up first: lambda 0 scan pscan pscan scan,
+    # then the shipped lambda once each
+    for impl in ("scan", "pscan"):
+        run(impl, w0, N=12, max_iter=1)
+    lam0, shipped = {}, {}
+    walls = {"scan_lamb0": [], "pscan_lamb0": []}
+    for impl in ("scan", "pscan", "pscan", "scan"):
+        out, wall = run(impl, w0, N=12, max_iter=20)
+        lam0.setdefault(impl, out)
+        walls[f"{impl}_lamb0"].append(wall)
+    for impl in ("scan", "pscan"):
+        shipped[impl], walls[f"{impl}_shipped"] = run(impl, w)
+
+    def close(a, b):
+        return ((a - b).abs() <= 1e-8 + 1e-6 * b.abs()).flatten(1).all(1)
+
+    (us, xs, ss, _), (up, xp, sp, _) = lam0["scan"], lam0["pscan"]
+    conv = ss.converged | sp.converged
+    same_exit = (ss.iters == sp.iters) & (ss.status == sp.status)
+    same_path = close(up, us) & close(xp, xs)
+    cs, cp = (shipped[k][2].converged for k in ("scan", "pscan"))
+    both = cs & cp
+    cost_rel = ((shipped["pscan"][2].final_cost - shipped["scan"][2].final_cost).abs()
+                / shipped["scan"][2].final_cost.abs())[both]
+    pos = (shipped["pscan"][1] - shipped["scan"][1]).abs()[both]
+    rec = dict(
+        batch=PSCAN_BATCH, walls_s=walls,
+        pscan_over_scan=dict(lamb0=sum(walls["pscan_lamb0"]) / sum(walls["scan_lamb0"]),
+                             shipped=walls["pscan_shipped"] / walls["scan_shipped"],
+                             backward=sum(backward_ms["pscan"]) / sum(backward_ms["scan"])),
+        backward_ms_abba=backward_ms,
+        lamb0=dict(converged_rows=int(conv.sum()), same_path=int((conv & same_path).sum()),
+                   same_exit=int((conv & same_exit).sum()),
+                   row0_same=bool(same_exit[0] and same_path[0]),
+                   exit_differs=[[int(ss.iters[i]), int(sp.iters[i]), int(ss.status[i]),
+                                  int(sp.status[i])]
+                                 for i in torch.nonzero(conv & ~same_exit).flatten().tolist()]),
+        shipped=dict(converged_scan=float(cs.double().mean()),
+                     converged_pscan=float(cp.double().mean()),
+                     mean_iters_scan=float(shipped["scan"][2].iters.double().mean()),
+                     mean_iters_pscan=float(shipped["pscan"][2].iters.double().mean()),
+                     median_cost_rel=float(cost_rel.median()) if both.any() else None,
+                     median_pos=float(pos.median()) if both.any() else None))
+    say("phase10d_pscan", **rec)
+    check(rec["lamb0"]["row0_same"], "(d) lambda 0: the test's own start differs")
+    check(bool(same_path[conv].all()), f"(d) lambda 0: {int((conv & ~same_path).sum())} "
+          "converged rows end on other trajectories under pscan and scan")
+    sh = rec["shipped"]
+    check(sh["converged_scan"] > 0.4 and both.any()
+          and abs(sh["converged_pscan"] - sh["converged_scan"]) <= 0.15
+          and sh["median_cost_rel"] < 1e-2 and sh["median_pos"] < 0.05,
+          f"(d) at the shipped lambda: {sh}")
+    return rec
+
+
+def hier_case(name):
+    """10e, one scenario (run in its own process by ``demo_hier``): the
+    eager solve with ``projection="hier"`` against ``"exact"``, cold, batch
+    ``HIER_BATCH``; prints one JSON line."""
+    import torch
+
+    from ilqr_tpu_torch.config import GlobalConfig
+    from ilqr_tpu_torch.sim.scenario import build_scenario_setup, perturbed_initial_states
+    from ilqr_tpu_torch.solvers.cilqr import solve
+    from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
+
+    f64 = torch.float64
+    gc = GlobalConfig.from_file(str(REPO / "configs" / f"{name}.yaml"))
+    st = build_scenario_setup(gc)
+    w = CILQRWeights.from_global_config(gc, f64, DEVICE)
+    x0 = torch.as_tensor(perturbed_initial_states(st.ego_x0, HIER_BATCH, seed=0), dtype=f64,
+                         device=DEVICE)
+    sc = st.device_scenario(tick=0, dtype=f64, device=DEVICE, batch=HIER_BATCH)
+    outs, walls = [], []
+    for proj in ("exact", "hier"):
+        cfg = dataclasses.replace(CILQRConfig.from_global_config(gc, projection=proj),
+                                  use_last_solution=False)
+        (u, x, stats, _), wall = timed_cuda(lambda: solve(cfg, w, x0, sc))
+        outs.append([u, x, *(getattr(stats, f.name) for f in dataclasses.fields(stats))])
+        walls.append(wall)
+    print(json.dumps(dict(name=name, bitwise=all(torch.equal(a, b) for a, b in zip(*outs)),
+                          walls_exact_hier_s=walls, mean_iters=float(outs[0][2].double().mean()))),
+          flush=True)
+
+
+def start_hier():
+    """10e: one process a scenario, on the card together."""
+    return {name: subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.hier_case({name!r})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in SCENARIOS}
+
+
+def check_hier(procs, t_start):
+    """10e: every scenario's hier solve bitwise its exact one."""
+    cases = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=APPS_TIMEOUT_S)
+        check(proc.returncode == 0, f"(e) {name} exited {proc.returncode}: {err[-2000:]}")
+        cases[name] = json.loads(out.strip().splitlines()[-1])
+    rec = dict(batch=HIER_BATCH, wall_s=time.perf_counter() - t_start, cases=cases)
+    say("phase10e_hier", **rec)
+    check(all(c["bitwise"] for c in cases.values()), f"(e) hier differs from exact: {cases}")
+    return rec
+
+
+def start_apps():
+    """10f: the three demo apps, headless, as subprocesses on the card."""
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", f"ilqr_tpu_torch.apps.{name}", "--no-viz", "--device", DEVICE],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in ("lqr_demo", "lqr_tracking", "cilqr_demo")}
+
+
+def check_apps(procs, t_start, tick0, cpu_demo):
+    """10f: each app's exit and lines, against the CPU runs' numbers."""
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=APPS_TIMEOUT_S)
+        out[name] = (proc.returncode, stdout, stderr)
+    rec = dict(wall_s=time.perf_counter() - t_start,
+               last_lines={name: (o.strip() or e.strip()).rpartition("\n")[2]
+                           for name, (_, o, e) in out.items()})
+    say("phase10f_apps", **rec)
+    for name, (rc, _, err) in out.items():
+        check(rc == 0, f"(f) {name} exited {rc}: {err[-2000:]}")
+    lqr = out["lqr_demo"][1]
+    check("Pstar =" in lqr and "Kstar =" in lqr, f"(f) lqr_demo printed {lqr!r}")
+    goal = f"goal reached after {tick0 + 1} ticks"
+    check(goal in out["lqr_tracking"][1], f"(f) lqr_tracking printed "
+          f"{out['lqr_tracking'][1]!r}, expected {goal!r}")
+    m = re.search(r"iters=(\d+) converged=(\w+) J=([0-9.eE+-]+)", out["cilqr_demo"][2])
+    check(m is not None and int(m.group(1)) == int(cpu_demo.iters)
+          and m.group(2) == str(bool(cpu_demo.converged))
+          and abs(float(m.group(3)) - float(cpu_demo.J)) <= DEMO_J_RTOL * abs(float(cpu_demo.J)),
+          f"(f) cilqr_demo logged {out['cilqr_demo'][2][-500:]!r}")
+    return rec
+
+
+def phase_demos(card):
+    """10: the pedagogical track and the eager solver's options on the card
+    (module docstring, phase 10); one line a path, then the phase's."""
+    t_phase = time.perf_counter()
+    a = demo_lqr()
+    b = demo_tracking()
+    c, cpu_demo = demo_cilqr()
+    d = demo_pscan()
+    # (e) and (f) run together, one process a scenario or an app: every
+    # timed path is done
+    t_procs = time.perf_counter()
+    hier, apps = start_hier(), start_apps()
+    try:
+        e = check_hier(hier, t_procs)
+        f = check_apps(apps, t_procs, b["row0_tick_cpu"], cpu_demo)
+    finally:
+        for proc in [*hier.values(), *apps.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    walls = dict(a_lqr=a["wall_s"], b_tracking=b["wall_s"], c_cilqr_demo=c["wall_s"],
+                 **{f"d_{k}": v for k, v in d["walls_s"].items()},
+                 d_backward_ms=d["backward_ms_abba"],
+                 e_f_processes_together=f["wall_s"])
+    say("phase10_demos", card=card, walls_s=walls, phase_s=time.perf_counter() - t_phase,
+        pscan_over_scan=d["pscan_over_scan"])
+
+
 def main():
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
@@ -1544,6 +1956,7 @@ def main():
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
     repro_kernels = phase_debug_repros(card)
+    phase_demos(card)
     # one entry per kernel the paths launched: its time on its first
     # record's inputs, its error the largest of its records'
     measured = {}

@@ -98,6 +98,13 @@ def rollout(x0, u_seq, dt, wheelbase, ref_point: str = GRAVITY_CENTER):
     return torch.stack(xs, dim=-2)
 
 
+def const_velo_prediction(x0, steps: int, dt, wheelbase, ref_point: str = GRAVITY_CENTER):
+    """Zero-control rollout (reference src/cilqr_solver.cpp:182-197):
+    x0 (..., 4) -> (..., steps+1, 4)."""
+    u = x0.new_zeros((*x0.shape[:-1], steps, 2))
+    return rollout(x0, u, dt, wheelbase, ref_point)
+
+
 def front_rear_centers(state, wheelbase, ref_point: str = GRAVITY_CENTER):
     """Front/rear disc centers of the ego footprint. state (..., 4).
 

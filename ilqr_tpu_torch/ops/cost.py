@@ -10,7 +10,8 @@ reference's ALM dual layout (src/cilqr_solver.cpp:622-676):
 
 ``row_limits`` (optional, (N+1,) integers) bounds each step's nearest-point
 search to the first rows of ``scenario.ref_line``, and ``modes`` picks the
-fused solve's projection mode (``Modes``, see ops/projection.py).
+fused solve's projection mode (``Modes``, see ops/projection.py);
+``cfg.projection`` ("exact" or "hier") the search itself.
 """
 
 from __future__ import annotations
@@ -35,9 +36,8 @@ class CostDerivatives(NamedTuple):
 def _ref_states(cfg: CILQRConfig, x, scenario, row_limits, modes):
     """Nearest ref rows + the (B, N+1, 4) tracking target [rx, ry, v_ref, ryaw]
     (reference src/cilqr_solver.cpp:205-209)."""
-    if cfg.projection != "exact":
-        raise NotImplementedError(f"projection={cfg.projection!r} is not ported")
-    ref_pts = nearest_ref_points(x[..., :2], scenario.ref_line, row_limits, modes)[..., :3]
+    ref_pts = nearest_ref_points(x[..., :2], scenario.ref_line, row_limits, modes,
+                                 cfg.projection)[..., :3]
     v_ref = scenario.ref_velo.to(x.dtype)[:, None].expand(-1, x.shape[1])
     ref_states = torch.stack([ref_pts[..., 0], ref_pts[..., 1], v_ref, ref_pts[..., 2]],
                              dim=-1)

@@ -468,7 +468,10 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     the problem's modes). Runs iterations [p.it0, max_iter)
     (``cfg.max_iter`` when None), from ``p.stats`` when given. ``work``
     receives the solver's rollout, trial and dual-update counts (see
-    ``solve_from_controls``)."""
+    ``solve_from_controls``). The kernel runs the sequential Riccati pass
+    and its own windowed projection whatever ``cfg.riccati_impl`` and
+    ``cfg.projection`` say, as the Pallas kernel does, and so does this."""
+    cfg = dataclasses.replace(cfg, riccati_impl="scan", projection="exact")
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
     win = torch.stack([p.rx, p.ry, p.ryaw, torch.zeros_like(p.rx)], dim=-1)  # (W,B,4)
     obs = torch.stack([p.ox, p.oy, p.oyaw], dim=-1)[:M]  # (M, N+1, B, 3)

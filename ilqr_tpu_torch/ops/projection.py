@@ -1,9 +1,18 @@
-"""Nearest-reference-point projection (PyTorch port of the ``exact`` method
-of ``ilqr_tpu/ops/projection.py``).
+"""Nearest-reference-point projection (PyTorch port of
+``ilqr_tpu/ops/projection.py``).
 
 A global brute-force argmin (the reference's Python semantics,
-scripts/utils/kinematic.py:69-75). ``row_limits`` restricts the search of
-query step k to rows [0, row_limits[k]) of the line: that is the windowed
+scripts/utils/kinematic.py:69-75), ``method="exact"``, or its two-stage
+form ``method="hier"`` (the solver's ``CILQRConfig.projection``): a
+stride-``HIER_STRIDE`` coarse first-min argmin, then a first-min argmin
+over the +-stride rows around the coarse winner, in row order, clipped to
+the line. The two agree wherever the line is locally smooth at the 0.8 m
+scale (every shipped scenario), and rows padded with far coordinates
+never win either. ``hier`` is the JAX package's option for its XLA
+solver's whole line only, so it takes no ``row_limits`` and no modes.
+
+``row_limits`` restricts the search of query step k to rows
+[0, row_limits[k]) of the line: that is the windowed
 search of the fused solve (``ilqr_tpu/ops/pallas/cilqr_kernel.py:432-445``),
 which ``ops/cuda/cilqr_kernel.py`` reproduces for its plain version.
 
@@ -26,6 +35,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+HIER_STRIDE = 8
 
 
 class Modes(NamedTuple):
@@ -72,14 +84,41 @@ def fold_argmin(score, rows):
     return idx[..., 0]
 
 
-def nearest_ref_points(pos, ref_line, row_limits=None, modes: Modes = Modes()):
+def _hier_index(pos, ref_line, stride: int):
+    """(B, T) row indices of the two-stage argmin."""
+    P = ref_line.shape[1]
+    coarse = ref_line[:, ::stride]  # (B, Pc, 4)
+    dx = pos[..., 0:1] - coarse[:, None, :, 0]
+    dy = pos[..., 1:2] - coarse[:, None, :, 1]
+    cidx = torch.argmin(dx * dx + dy * dy, dim=-1)  # (B, T)
+    offs = torch.arange(-stride, stride + 1, device=pos.device)
+    cand = (cidx[..., None] * stride + offs).clamp(0, P - 1)  # (B, T, 2S+1)
+    B, T, S = cand.shape
+    cxy = torch.gather(ref_line[..., :2], 1, cand.reshape(B, T * S, 1).expand(-1, -1, 2))
+    cxy = cxy.view(B, T, S, 2)
+    ddx = pos[..., None, 0] - cxy[..., 0]
+    ddy = pos[..., None, 1] - cxy[..., 1]
+    best = torch.argmin(ddx * ddx + ddy * ddy, dim=-1)
+    return torch.gather(cand, -1, best[..., None])[..., 0]
+
+
+def nearest_ref_points(pos, ref_line, row_limits=None, modes: Modes = Modes(),
+                       method: str = "exact"):
     """For query positions pos (B, T, 2) against ref_line (B, P, 4)
     [x, y, yaw, s], return the nearest rows as (B, T, 4).
 
     Ties resolve to the first row (``torch.argmin`` returns the first
     minimal index), or by tournament order with ``modes.proj_fold``.
-    ``row_limits``: optional (T,) integer tensor.
+    ``row_limits``: optional (T,) integer tensor. ``method``: "exact" or
+    "hier" (without row limits or modes).
     """
+    if method == "hier":
+        if row_limits is not None or modes != Modes():
+            raise ValueError("the hier projection takes no row_limits and no modes")
+        idx = _hier_index(pos, ref_line, HIER_STRIDE)
+        return torch.gather(ref_line, 1, idx[..., None].expand(-1, -1, ref_line.shape[-1]))
+    if method != "exact":
+        raise ValueError(f"unknown projection method {method!r}")
     rx, ry = ref_line[..., 0], ref_line[..., 1]
     if modes.proj_dot:
         p_cr, p_nx, p_ny = (t[:, None, :] for t in dot_terms(rx, ry))

@@ -21,6 +21,10 @@ same results as the JAX package's breadth-first search at any width. It
 can roll its trials out in chunks of alphas (``ls_chunk``, the fused
 solve's chunked line search) with the same results, bit for bit.
 
+``cfg.riccati_impl="pscan"`` runs the backward pass as a log-depth scan
+(``ops/riccati_pscan.py``, regularizing the gains only) in place of the
+sequential recursion.
+
 This solver is the port's CPU path and the float64 comparator of the CUDA
 kernel (``ops/cuda/cilqr_kernel.py``).
 """
@@ -37,6 +41,7 @@ from ilqr_tpu_torch.models.bicycle import kinematic_jacobians, rollout
 from ilqr_tpu_torch.ops.cost import cost_and_derivatives, total_cost
 from ilqr_tpu_torch.ops.projection import Modes
 from ilqr_tpu_torch.ops.riccati import backward_pass, forward_pass
+from ilqr_tpu_torch.ops.riccati_pscan import parallel_lqr_backward
 from ilqr_tpu_torch.types import (
     CILQRCarry,
     CILQRConfig,
@@ -197,8 +202,8 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     if work is not None:
         for key in ("trials", "evals", "dual_updates"):
             work.setdefault(key, 0)
-    if cfg.riccati_impl != "scan":
-        raise NotImplementedError(f"riccati_impl={cfg.riccati_impl!r} is not ported")
+    if cfg.riccati_impl not in ("scan", "pscan"):
+        raise ValueError(f"unknown riccati_impl {cfg.riccati_impl!r}")
     Bn = x0.shape[0]
     dev = x0.device
     alm = cfg.solve_type == "alm"
@@ -232,7 +237,10 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
         # its derivatives from one pass
         ori_cost, der = cost_and_derivatives(cfg, w, u, x, scenario, rho, mu, row_limits, modes)
         A, Bm = kinematic_jacobians(x[:, :-1], u, w.dt, w.wheelbase, cfg.reference_point)
-        bw = backward_pass(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb)
+        if cfg.riccati_impl == "pscan":
+            bw = parallel_lqr_backward(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb=lamb)
+        else:
+            bw = backward_pass(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb)
         ls = _line_search(cfg, w, u, x, bw.d, bw.K, ori_cost, bw.dV1, bw.dV2, scenario,
                           rho, mu, active & ~bw.fail, row_limits, work, modes)
 

@@ -6,7 +6,9 @@ Counterpart of ``ilqr_tpu/utils/refline.py``:
   arc-length spline (reference src/utils.cpp:21-35, 60-67), offset
   perpendicular to the local yaw: lx = x - w*sin(yaw), ly = y + w*cos(yaw);
 - ``RoutingLine``: a time-indexed (x, y, yaw) agent trajectory (reference
-  src/utils.cpp:37-58).
+  src/utils.cpp:37-58);
+- ``get_cur_obstacle_states``: the agents' states at one tick (reference
+  src/utils.cpp:105-115), which the renderer draws.
 """
 
 from __future__ import annotations
@@ -83,6 +85,11 @@ class RoutingLine:
     def __len__(self) -> int:
         return min(len(self.x), len(self.y), len(self.yaw))
 
+    def __getitem__(self, index: int) -> np.ndarray:
+        if index >= len(self):
+            raise IndexError("RoutingLine index out of range")
+        return np.array([self.x[index], self.y[index], self.yaw[index]])
+
     def as_array(self, dtype=np.float64) -> np.ndarray:
         """(T, 3) array of [x, y, yaw]."""
         return np.stack(
@@ -96,3 +103,14 @@ def stack_routing_lines(lines: Sequence[RoutingLine], dtype=np.float64) -> np.nd
         return np.zeros((0, 0, 3), dtype=dtype)
     t = min(len(line) for line in lines)
     return np.stack([line.as_array(dtype)[:t] for line in lines], axis=0)
+
+
+def get_cur_obstacle_states(routing_lines: Sequence[RoutingLine], time_index: int,
+                            dtype=np.float64) -> np.ndarray:
+    """(M, 3) obstacle states at ``time_index``: routing line 0 is the ego's,
+    so the obstacles are ``routing_lines[1:]`` sampled at the tick
+    (reference src/utils.cpp:105-115 returns the columns of a 3xM matrix)."""
+    obstacles = routing_lines[1:]
+    if not obstacles:
+        return np.zeros((0, 3), dtype=dtype)
+    return np.stack([np.asarray(rl[time_index], dtype=dtype) for rl in obstacles], axis=0)

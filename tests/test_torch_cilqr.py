@@ -101,8 +101,14 @@ def test_five_tick_trajectory_matches_golden(name):
 
 @pytest.mark.parametrize("override", [{"riccati_impl": "pscan"}, {"projection": "hier"}])
 def test_unported_options_raise(override):
+    """Both options are ported now (held to the JAX package by
+    tests/test_torch_riccati_pscan.py and tests/test_torch_projection_hier.py):
+    the solve runs with each, and an unknown value of either raises."""
     _, _, gc, st = load_both("scenario_two_straight")
-    cfg = dataclasses.replace(CILQRConfig.from_global_config(gc), **override)
     w = CILQRWeights.from_global_config(gc, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        solve(cfg, w, t64(st.ego_x0[None]), st.device_scenario(dtype=torch.float64))
+    x0, sc = t64(st.ego_x0[None]), st.device_scenario(dtype=torch.float64)
+    cfg = dataclasses.replace(CILQRConfig.from_global_config(gc, max_iter=3), **override)
+    _, x, stats, _ = solve(cfg, w, x0, sc)
+    assert bool(torch.isfinite(x).all()) and int(stats.iters[0]) == 3
+    with pytest.raises(ValueError):
+        solve(dataclasses.replace(cfg, **{k: "unknown" for k in override}), w, x0, sc)

@@ -73,12 +73,18 @@ def test_run_mpc_kernel_plain_path_matches_jax(episodes):
                                       [int(s.status) for s in jh["stats"]])
 
 
-def test_motion_planning_app_headless(caplog):
+def test_motion_planning_app_headless(caplog, tmp_path):
+    """Headless runs: with --no-viz, and rendering to a file (Agg)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
     from ilqr_tpu_torch.apps import motion_planning
 
     config = os.path.join(CONFIG_DIR, "scenario_two_straight.yaml")
-    with pytest.raises(NotImplementedError):
-        motion_planning.main(["-c", config, "--ticks", "1"])
+    out = tmp_path / "episode.gif"
+    assert motion_planning.main(["-c", config, "--ticks", "1", "--device", "cpu",
+                                 "--save", str(out)]) == 0
+    assert out.stat().st_size > 0
     caplog.set_level("INFO")
     assert motion_planning.main(["-c", config, "--no-viz", "--ticks", "2", "--device",
                                  "cpu"]) == 0

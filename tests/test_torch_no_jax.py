@@ -1,7 +1,10 @@
-"""The PyTorch port imports neither JAX, flax nor the JAX package.
+"""The PyTorch port imports neither JAX, flax nor the JAX package, and
+nothing of it needs matplotlib to import.
 
-A fresh interpreter in which importing ``jax``, ``flax`` or ``ilqr_tpu``
-raises imports every module of ``ilqr_tpu_torch`` and the chip smoke script.
+A fresh interpreter in which importing ``jax``, ``flax``, ``ilqr_tpu`` or
+``matplotlib`` raises imports every module of ``ilqr_tpu_torch`` and the
+chip smoke script (the renderer and the apps import matplotlib only when
+they draw, so the port runs where it is not installed).
 """
 
 import os
@@ -12,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "ilqr_tpu"):
+for name in ("jax", "flax", "ilqr_tpu", "matplotlib"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import ilqr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ilqr_tpu_torch.__path__, "ilqr_tpu_torch.")]

@@ -56,6 +56,23 @@ def port_weights(w_jax, dtype=torch.float64) -> CILQRWeights:
     return CILQRWeights.from_numpy(d, dtype=dtype)
 
 
+def port_demo_params(p_jax, dtype=torch.float64):
+    """The port's ``DemoCILQRParams`` with the JAX demo params' values."""
+    from ilqr_tpu_torch.solvers.cilqr_demo import DemoCILQRParams
+
+    return DemoCILQRParams.from_numpy(
+        {f.name: np.asarray(getattr(p_jax, f.name)) for f in dataclasses.fields(p_jax)},
+        dtype=dtype)
+
+
+def port_tracker_params(p_jax, dtype=torch.float64):
+    """The port's ``TrackerParams`` with the JAX tracker params' values."""
+    from ilqr_tpu_torch.solvers.lqr_tracking import TrackerParams
+
+    return TrackerParams.from_numpy({k: np.asarray(v) for k, v in p_jax._asdict().items()},
+                                    dtype=dtype)
+
+
 def t64(a):
     """A float64 CPU tensor of a numpy or JAX array."""
     return torch.as_tensor(np.array(a, dtype=np.float64))
