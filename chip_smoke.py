@@ -136,12 +136,17 @@ non-zero and prints no final line:
    the local ``aggregate_stats``; and ``run_mpc_chunked_sharded`` on a
    one-card mesh bitwise equal to ``run_mpc_kernel_chunked`` over 30 ticks
    of the main path;
-7. the ``tools/debug`` repro kernels: each flow once with the counts at 0,
+7. (run right after phase 0, while the host is quiet) the ``tools/debug``
+   repro kernels: each flow once with the counts at 0,
    then each kernel bitwise equal to its plain version and to the repro's
-   closed form, with its time per call (200 calls between CUDA events,
-   the launch path included), its device time (``torch.profiler``'s
-   device spans of 200 calls) and the same two for the plain version and
-   the library call;
+   closed form; ``carry`` (0, 1 and 2 trips) and ``dataflow_k2`` bitwise
+   (int32 views) at 1, 5, 2047, 2048 and 2049 columns, one launch each;
+   each library call of ``debug_repros.LIBRARY`` bitwise its plain
+   version; each kernel's time per call (200 calls between CUDA events,
+   the launch path included) and device time (``torch.profiler``'s
+   device spans of 200 calls) against its library call's, in the order
+   kernel, library, library, kernel, twice; the plain version's time per
+   call; the float4 kernels' device time in blocks of 32, 64 and 128;
 10. the demos and the eager solver's options, plain PyTorch in float64 on
    the card (no kernel of this script), each held to the port's own CPU
    run: (a) ``lqr_demo_batch_x0`` over 8192 seeded starts of the reference
@@ -901,9 +906,16 @@ def profile_run(fn):
 
 
 def device_ms(fn, reps):
-    """Mean device milliseconds a call of ``fn`` takes over ``reps`` calls
-    after a warm-up: the device spans (kernels, copies, fills) that
-    ``torch.profiler`` records, summed, without the host's launch path."""
+    """Device milliseconds a call of ``fn`` takes, without the host's launch
+    path: over ``reps`` calls after a warm-up, per name of the device spans
+    (kernels, copies, fills) that ``torch.profiler`` records, the mean of
+    the middle 80% of its spans times the spans of that name a call makes,
+    summed. Per name and rounded, the count stands against spans the
+    profiler drops (a sum over the recorded spans per call read a dropped
+    span as a fast call, below the launch floor); the trimmed mean against
+    outliers, and unlike the median it resolves below the spans' 32 ns
+    timestamp step."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -914,9 +926,17 @@ def device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans[e.name].append(e.time_range.elapsed_us())
     check(spans, "the profiler recorded no device activity")
-    return sum(spans) / 1e3 / reps
+    total = 0.0
+    for v in spans.values():
+        v = np.sort(v)
+        cut = len(v) // 10
+        total += float(v[cut:len(v) - cut].mean()) * max(1, round(len(v) / reps))
+    return total / 1e3
 
 
 def stats_ms(values):
@@ -1476,15 +1496,74 @@ REPROS = {
 }
 
 
+# widths at which the float4 kernels are held bitwise to their plain
+# versions on the card (odd ones: a quad of ``carry`` straddles its zero
+# rows), one launch each
+REPRO_WIDTHS = (1, 5, 2047, 2048, 2049)
+REPRO_REPS = 200
+REPRO_BLOCKS = (32, 64, 128)  # blocks timed for the float4 kernels
+
+
+def repro_calls(dr, ins):
+    """name -> (kernel, plain version, its arguments) at the repros'
+    shapes; ``dataflow_k2`` on ``k1``'s outputs."""
+    x, _ = ins["dataflow"]
+    x0, res = ins["carry"]
+    u1, s1 = dr.dataflow_k1(x)
+    return {
+        "min_resume_echo": (dr.resume_echo, dr.resume_echo_ref, tuple(ins["resume"])),
+        "min_dataflow_k1": (dr.dataflow_k1, dr.dataflow_k1_ref, (x,)),
+        "min_dataflow_k2": (dr.dataflow_k2, dr.dataflow_k2_ref, (u1, s1)),
+        "min_carry": (dr.carry, lambda a, b: dr.carry_ref(a, b, 2), (x0, res)),
+        "min_zerotrip": (dr.zerotrip, lambda a, b: dr.carry_ref(a, b, 0), (x0, res)),
+    }
+
+
+def repro_at_block(dr, name, args, block):
+    """A launch of ``name``'s kernel in blocks of ``block`` threads, through
+    its C entry (no count): the block sizes' device times."""
+    fns, raw_stream, _ = dr._bound()
+    entry = "min_carry" if name == "min_zerotrip" else name
+    Bp = args[0].shape[1]
+    trips = () if name == "min_dataflow_k2" else (2 if name == "min_carry" else 0,)
+
+    def run():
+        out = args[1].new_empty((8, Bp))
+        err = fns[entry](*(a.data_ptr() for a in (*args, out)), Bp, *trips,
+                         *dr.launch_plan(entry, Bp, block), raw_stream(0))
+        check(err == 0, f"{name} at block {block}: cudaError_t {err}")
+        return out
+    return run
+
+
+def abba_ms(fns, reps=REPRO_REPS):
+    """Each of ``fns`` (name -> call) timed per call (CUDA events over
+    ``reps`` calls, the launch path included) and on the device (the
+    profiler's spans of ``reps`` calls), in the given order and then
+    reversed, twice: name -> {"ms": [4], "device_ms": [4]}."""
+    from ilqr_tpu_torch.apps import validate_kernel as vk
+
+    got = {k: {"ms": [], "device_ms": []} for k in fns}
+    for order in (list(fns), list(fns)[::-1]) * 2:
+        for k in order:
+            got[k]["ms"].append(vk.time_ms(fns[k], reps)[0])
+            got[k]["device_ms"].append(device_ms(fns[k], reps))
+    return got
+
+
 def phase_debug_repros(card):
     """7: each repro flow once with the counts at 0, then each kernel held
     bitwise to its plain version and to the repro's closed form
-    (``want_*`` in tools/debug), and timed."""
+    (``want_*`` in tools/debug), ``carry`` (0, 1, 2 trips) and
+    ``dataflow_k2`` also at ``REPRO_WIDTHS``; each kernel timed against the
+    one library call of its function (``dr.LIBRARY``) in the order kernel,
+    library, library, kernel, twice."""
     import numpy as np
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
     from ilqr_tpu_torch.ops.cuda import debug_repros as dr
 
+    t_phase = time.perf_counter()
     ins = dr.repro_inputs(DEVICE)
     x, done = ins["dataflow"]
     x0, res = ins["carry"]
@@ -1517,39 +1596,60 @@ def phase_debug_repros(card):
         b = plain[key] if isinstance(plain[key], tuple) else (plain[key],)
         check(all(torch.equal(p, q) for p, q in zip(a, b)), f"{key}: kernel differs from plain")
         check(closed[key], f"{key}: differs from the repro's closed form")
-    u1, s1 = got["min_dataflow"][1], got["min_dataflow"][2]
-    calls = {  # kernel, plain version, one library call of the same function (or None)
-        "min_resume_echo": (lambda: dr.resume_echo(*ins["resume"]),
-                            lambda: dr.resume_echo_ref(*ins["resume"]),
-                            lambda: ins["resume"][-1].clone()),
-        "min_dataflow_k1": (lambda: dr.dataflow_k1(x), lambda: dr.dataflow_k1_ref(x), None),
-        "min_dataflow_k2": (lambda: dr.dataflow_k2(u1, s1), lambda: dr.dataflow_k2_ref(u1, s1),
-                            lambda: torch.add(s1, u1[:8])),
-        "min_carry": (lambda: dr.carry(x0, res), lambda: dr.carry_ref(x0, res, 2),
-                      lambda: res.clone()),
-        "min_zerotrip": (lambda: dr.zerotrip(x0, res), lambda: dr.carry_ref(x0, res, 0),
-                         lambda: res.clone()),
-    }
-    kernels = []
-    for name, (kernel, ref, lib) in calls.items():
-        reps = 200
-        ms, _ = vk.time_ms(kernel, reps)
-        plain_ms, _ = vk.time_ms(ref, reps)
-        lib_ms = vk.time_ms(lib, reps)[0] if lib else None
-        # the same calls' device time, without the launch path
-        dev_ms = device_ms(kernel, reps)
-        lib_dev_ms = device_ms(lib, reps) if lib else None
+    # the float4 kernels at odd widths, bitwise (int32 views), one launch each
+    widths = {}
+    for bp in REPRO_WIDTHS:
+        w_ins = dr.repro_inputs(DEVICE, bp)
+        wx0, wres = w_ins["carry"]
+        wu, ws = dr.dataflow_k1_ref(w_ins["dataflow"][0])
+        cases = [(f"carry_{t}", lambda t=t: dr.carry_trips(wx0, wres, t),
+                  dr.carry_ref(wx0, wres, t)) for t in (0, 1, 2)]
+        cases.append(("dataflow_k2", lambda: dr.dataflow_k2(wu, ws), dr.dataflow_k2_ref(wu, ws)))
+        for tag, fn, want in cases:
+            before = sum(dr.launches.values())
+            out = fn()
+            torch.cuda.synchronize()
+            check(sum(dr.launches.values()) - before == 1, f"{tag} at {bp}: not one launch")
+            check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+                  f"{tag} at {bp} columns differs from its plain version")
+        widths[bp] = "bitwise"
+    calls = repro_calls(dr, ins)
+    for name, (kernel, ref, args) in calls.items():
+        lib = dr.LIBRARY[name]
+        if lib is not None:
+            check(torch.equal(lib(*args).view(torch.int32), ref(*args).view(torch.int32)),
+                  f"{name}: the library call is not its function")
+    blocks = {}
+    for name in ("min_dataflow_k2", "min_carry", "min_zerotrip"):
+        kernel, ref, args = calls[name]
+        blocks[name] = [(b, device_ms(repro_at_block(dr, name, args, b), REPRO_REPS))
+                        for b in REPRO_BLOCKS + REPRO_BLOCKS[::-1]]
+    kernels, timing = [], {}
+    for name, (kernel, ref, args) in calls.items():
+        fns = {"kernel": lambda k=kernel, a=args: k(*a)}
+        lib = dr.LIBRARY[name]
+        if lib is not None:
+            fns["library"] = lambda f=lib, a=args: f(*a)
+        runs = abba_ms(fns)
+        timing[name] = runs
+        plain_ms, _ = vk.time_ms(lambda r=ref, a=args: r(*a), REPRO_REPS)
         replaces_, rows, ops = REPROS[name]
         t_bytes = rows * dr.BP * 4 / PEAK_BYTES * 1e3
         t_ops = ops * dr.BP / PEAK_OPS["f32"] * 1e3
+        mean = {k: {m: float(np.mean(v[m])) for m in v} for k, v in runs.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": REPRO_SOURCE, "replaces": replaces_,
-            "launches": launches[name], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
-            "batch": dr.BP})
+            "launches": launches[name], "max_abs_err": 0.0, "ms": mean["kernel"]["ms"],
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": mean["library"]["ms"] if lib else None,
+            "device_ms": mean["kernel"]["device_ms"],
+            "library_device_ms": mean["library"]["device_ms"] if lib else None,
+            "batch": dr.BP, "block": dr.launch_plan(
+                "min_carry" if name == "min_zerotrip" else name, dr.BP)[1]})
     say("phase7_debug_repros", card=card, launches=launches, bitwise_plain=True,
-        closed_form=closed, kernels=kernels)
+        closed_form=closed, widths_bitwise=widths, order="AB BA AB BA", timing=timing,
+        block_device_ms=blocks, phase_s=time.perf_counter() - t_phase, kernels=kernels)
     return kernels
 
 
@@ -1942,6 +2042,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card, ptxas = phase_env()
+    repro_kernels = phase_debug_repros(card)  # first, while the host is quiet
     records = [rec for case in vk.CASES for rec in phase_semantics_f64(case)]
     phase_f32_anchor()
     records += [rec for path in PATHS for rec in phase_f32_path_shape(path)]
@@ -1955,7 +2056,6 @@ def main():
     phase_sweep(card, launches)
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
-    repro_kernels = phase_debug_repros(card)
     phase_demos(card)
     # one entry per kernel the paths launched: its time on its first
     # record's inputs, its error the largest of its records'

@@ -15,20 +15,22 @@
 //                          and tools/debug/min_zerotrip_repro.py:14 (0 trips)
 //
 // Bound: bytes. Each is a copy or an affine map of a few hundred KB, so at
-// these shapes a launch costs its fixed overhead; one thread per element
-// (per column for the carry loop), neighbouring threads on neighbouring
-// addresses. Every product and sum is written with the round-to-nearest
-// intrinsics, so nvcc contracts nothing into an FMA: 3x - 5 is rounded
-// twice, as the repros' numpy expectation and the plain versions in
-// ilqr_tpu_torch/ops/cuda/debug_repros.py round it.
+// these shapes a launch costs its fixed overhead (~1 us) against a bytes
+// bound of 0.03-0.2 us. dataflow_k2 and carry are flat passes over their
+// 8 Bp output floats, a float4 (16 bytes) a thread, neighbouring threads on
+// neighbouring quads, in small blocks so that the quads spread over many
+// SMs; resume_echo and dataflow_k1 are one thread per element. The launch
+// shape (grid, block) comes from the host (debug_repros.launch_plan); each
+// entry checks that it covers the work. Every product and sum is written
+// with the round-to-nearest intrinsics, so nvcc contracts nothing into an
+// FMA: 3x - 5 is rounded twice, as the repros' numpy expectation and the
+// plain versions in ilqr_tpu_torch/ops/cuda/debug_repros.py round it.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
-
-constexpr int kBlock = 256;
-
-int blocks(int n) { return (n + kBlock - 1) / kBlock; }
 
 // K2: out = res + 0 x0 + 0 uinit + 0 rx + 0 ry + 0 ryaw + 0 ox + 0 oy + 0 oyaw
 // over the first 8 rows of every input (n = 8 Bp elements), left to right.
@@ -65,70 +67,146 @@ __global__ void dataflow_k1(const float* __restrict__ x, float* __restrict__ u,
   }
 }
 
-// K3 k2: out (8, Bp) = s + u[0:8].
-__global__ void dataflow_k2(const float* __restrict__ u, const float* __restrict__ s,
-                            float* __restrict__ out, int n8) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n8) return;
-  out[i] = __fadd_rn(s[i], u[i]);
+// K3 k2: out (8, Bp) = s + u[0:8]. Rows 0..7 of u are its first 8 Bp floats,
+// so this is a flat pass over nq = 2 Bp quads, one a thread.
+__global__ void dataflow_k2(const float4* __restrict__ u, const float4* __restrict__ s,
+                            float4* __restrict__ out, int nq) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const float4 a = s[q], b = u[q];
+  out[q] = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                       __fadd_rn(a.w, b.w));
 }
 
 // K4 / K5: rows 0..5 of res are the carries of a `trips`-trip loop that adds
-// lane0 = 0 x0[0] to each; out (8, Bp) = those 6 rows, then 2 zero rows. One
-// thread per column.
-__global__ void carry(const float* __restrict__ x0, const float* __restrict__ res,
-                      float* __restrict__ out, int Bp, int trips) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= Bp) return;
-  const float lane0 = __fmul_rn(x0[b], 0.f);
-  float c[6];
-  for (int k = 0; k < 6; ++k) c[k] = res[k * Bp + b];
-  for (int t = 0; t < trips; ++t)
-    for (int k = 0; k < 6; ++k) c[k] = __fadd_rn(c[k], lane0);
-  for (int k = 0; k < 6; ++k) out[k * Bp + b] = c[k];
-  out[6 * Bp + b] = 0.f;
-  out[7 * Bp + b] = 0.f;
+// lane0 = 0 x0[0] to each; out (8, Bp) = those 6 rows, then 2 zero rows. A
+// flat pass over the 2 Bp output quads, one a thread: flat element i < 6 Bp
+// is res[i] plus, `trips` times in turn, 0 x0[0, i % Bp]; the rest is 0. 6 Bp
+// need not be a multiple of 4, so the one quad that straddles it reads its
+// res elements one at a time; rows 6..7 of res are never read. With no trip
+// (or past 6 Bp) the quad is a copy. Else its x0 loads go first: the quad's
+// first column from five compares (no division), and when Bp is a multiple
+// of 4 its four lane0 inputs are one float4 of x0, else four loads with the
+// row wrap. The trip loop is outside the quad's (a short loop, as the
+// repro's).
+__device__ __forceinline__ void load_res(const float* __restrict__ res, int q, int n6,
+                                         float (&v)[4]) {
+  const int i = 4 * q;
+  if (i + 4 <= n6) {
+    const float4 r = reinterpret_cast<const float4*>(res)[q];
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = i + k < n6 ? res[i + k] : 0.f;
+  }
 }
+
+__global__ void carry(const float* __restrict__ x0, const float* __restrict__ res,
+                      float4* __restrict__ out, int Bp, int trips) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= 2 * Bp) return;
+  const int i = 4 * q, n6 = 6 * Bp;
+  float v[4];
+  if (trips == 0 || i >= n6) {
+    load_res(res, q, n6, v);
+    out[q] = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  int b = i;  // i % Bp, as i < 6 Bp
+#pragma unroll
+  for (int m = 1; m < 6; ++m) b -= i >= m * Bp ? Bp : 0;
+  float x[4] = {0.f, 0.f, 0.f, 0.f};
+  if (Bp % 4 == 0) {  // the quad lies in one row
+    const float4 r = reinterpret_cast<const float4*>(x0)[b / 4];
+    x[0] = r.x;
+    x[1] = r.y;
+    x[2] = r.z;
+    x[3] = r.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int c = b + k;  // < Bp + 3: at most three wraps (Bp >= 1)
+      c -= c >= Bp ? Bp : 0;
+      c -= c >= Bp ? Bp : 0;
+      c -= c >= Bp ? Bp : 0;
+      if (i + k < n6) x[k] = x0[c];
+    }
+  }
+  load_res(res, q, n6, v);
+  // past 6 Bp, x = v = +0 and +0 + 0 x (+0) stays +0: no test needed
+  float lane0[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) lane0[k] = __fmul_rn(x[k], 0.f);
+#pragma unroll 1
+  for (int t = 0; t < trips; ++t)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __fadd_rn(v[k], lane0[k]);
+  out[q] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// A launch of grid x block threads covers `threads` work items, in the
+// limits of a launch.
+bool covers(long long threads, int grid, int block) {
+  return block >= 1 && block <= 1024 && grid >= 1 &&
+         static_cast<long long>(grid) * block >= threads;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+// Bp is valid when 64 Bp, the largest element count, fits an int.
+bool columns_ok(int Bp) { return Bp >= 0 && Bp < (1 << 25); }
 
 int status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes): device pointers, the column
-// count Bp, the stream; each returns the launch's cudaError_t.
+// count Bp, the launch shape, the stream; each returns the launch's
+// cudaError_t, cudaErrorInvalidValue for a shape or a plan it refuses.
 extern "C" int min_resume_echo(const float* x0, const float* uinit, const float* rx,
                                const float* ry, const float* ryaw, const float* ox,
                                const float* oy, const float* oyaw, const float* res, float* out,
-                               int Bp, void* stream) {
-  if (Bp < 0) return cudaErrorInvalidValue;
+                               int Bp, int grid, int block, void* stream) {
+  if (!columns_ok(Bp)) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
   const int n = 8 * Bp;
-  resume_echo<<<blocks(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (!covers(n, grid, block)) return cudaErrorInvalidValue;
+  resume_echo<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res, out, n);
   return status();
 }
 
-extern "C" int min_dataflow_k1(const float* x, float* u, float* s, int Bp, void* stream) {
-  if (Bp < 0) return cudaErrorInvalidValue;
+extern "C" int min_dataflow_k1(const float* x, float* u, float* s, int Bp, int grid, int block,
+                               void* stream) {
+  if (!columns_ok(Bp)) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  dataflow_k1<<<blocks(64 * Bp), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, u, s, 8 * Bp, 64 * Bp);
+  if (!covers(64 * Bp, grid, block)) return cudaErrorInvalidValue;
+  dataflow_k1<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(x, u, s, 8 * Bp, 64 * Bp);
   return status();
 }
 
-extern "C" int min_dataflow_k2(const float* u, const float* s, float* out, int Bp,
-                               void* stream) {
-  if (Bp < 0) return cudaErrorInvalidValue;
+extern "C" int min_dataflow_k2(const float* u, const float* s, float* out, int Bp, int grid,
+                               int block, void* stream) {
+  if (!columns_ok(Bp)) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  dataflow_k2<<<blocks(8 * Bp), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(u, s, out,
-                                                                                8 * Bp);
+  if (!covers(2 * Bp, grid, block) || !aligned16(u) || !aligned16(s) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  dataflow_k2<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(u), reinterpret_cast<const float4*>(s),
+      reinterpret_cast<float4*>(out), 2 * Bp);
   return status();
 }
 
 extern "C" int min_carry(const float* x0, const float* res, float* out, int Bp, int trips,
-                         void* stream) {
-  if (Bp < 0 || trips < 0) return cudaErrorInvalidValue;
+                         int grid, int block, void* stream) {
+  if (!columns_ok(Bp) || trips < 0) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  carry<<<blocks(Bp), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(x0, res, out, Bp, trips);
+  if (!covers(2 * Bp, grid, block) || !aligned16(x0) || !aligned16(res) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  carry<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      x0, res, reinterpret_cast<float4*>(out), Bp, trips);
   return status();
 }

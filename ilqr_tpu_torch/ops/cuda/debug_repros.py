@@ -24,9 +24,12 @@ horizon rows, float32, column-fastest ([row][Bp]). ``repro_inputs`` makes
 each repro's inputs from numpy's generator with seed 0, as the repros do.
 
 Each wrapper runs its plain version for CPU tensors; for CUDA tensors it
-launches its kernel (counted in ``launches`` under its own name) or raises.
-The library is built with nvcc at first use into ``ilqr_tpu_torch/_build/``,
-as ``cilqr_kernel.load_library`` builds the solve.
+launches its kernel (counted in ``launches`` under its own name) with
+``launch_plan``'s shape, or raises. The library is built with nvcc at first
+use into ``ilqr_tpu_torch/_build/``, as ``cilqr_kernel.load_library``
+builds the solve. ``LIBRARY`` holds, per kernel, one PyTorch call that
+computes the same function (``chip_smoke.py``'s yardstick; the port never
+calls it), or None where there is none.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ilqr_tpu_torch.ops.cuda.cilqr_kernel import build_library
 
@@ -49,73 +53,126 @@ launches: collections.Counter = collections.Counter()
 
 _SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "debug_repros.cu"
 
+# Per C entry: the pointer arguments before Bp, the int arguments from Bp
+# on (grid and block last), output floats per column, floats a thread
+# writes, threads a block. The float4 kernels take small blocks, so that
+# the 4096 quads of Bp = 2048 spread over 32 SMs (128 was the best of 32,
+# 64 and 128 on the H100, chip_smoke.py phase 7).
+_ENTRIES = {
+    "min_resume_echo": (10, 3, 8, 1, 256),
+    "min_dataflow_k1": (3, 3, 64, 1, 256),
+    "min_dataflow_k2": (3, 3, 8, 4, 128),
+    "min_carry": (3, 4, 8, 4, 128),
+}
+# the kernels that move float4s: every pointer 16-byte aligned
+_QUADS = ("min_dataflow_k2", "min_carry")
+
+
+def launch_plan(kernel: str, Bp: int, block: int | None = None) -> tuple[int, int]:
+    """(grid, block) of a launch of the C entry ``kernel`` over Bp columns:
+    one thread per output element, or per quad of them for the float4
+    kernels, in blocks of ``block`` threads (the kernel's own by default)."""
+    _, _, rows, per_thread, default = _ENTRIES[kernel]
+    block = block or default
+    threads = rows * Bp // per_thread  # 8 Bp is a multiple of 4
+    return -(-threads // block), block
+
+
+def bind_library(lib):
+    """Declare the argument and result types of the repro library's C
+    entry points on ``lib``; returns {entry name: bound function}."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, (ptrs, ints, *_) in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * ptrs + [ci] * ints + [vp]
+        fn.restype = ci
+        fns[name] = fn
+    return fns
+
 
 @functools.cache
 def load_library():
     """Build the repro kernels' library (once per source hash) and load it.
     Returns (ctypes library, the nvcc log of its build)."""
-    lib, log = build_library(_SOURCE, "libdebug_repros")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("min_resume_echo", [vp] * 10 + [ci]),
-                       ("min_dataflow_k1", [vp] * 3 + [ci]),
-                       ("min_dataflow_k2", [vp] * 3 + [ci]),
-                       ("min_carry", [vp] * 3 + [ci, ci])):
-        fn = getattr(lib, name)
-        fn.argtypes = args + [vp]
-        fn.restype = ci
-    return lib, log
+    return build_library(_SOURCE, "libdebug_repros")
 
 
-def repro_inputs(device="cpu") -> dict:
+@functools.cache
+def _bound():
+    """The C entries, bound once; the current-stream handle and current
+    device lookups (CUDA is initialised once a CUDA tensor exists)."""
+    return (bind_library(load_library()[0]), torch._C._cuda_getCurrentRawStream,
+            torch._C._cuda_getDevice)
+
+
+def repro_inputs(device="cpu", bp: int = BP) -> dict:
     """Each repro's inputs, made as the repro makes them (numpy, seed 0),
-    at G = 1: ``resume`` the nine blocks (x0, uinit, rx, ry, ryaw, ox, oy,
-    oyaw, res), ``dataflow`` (x, done), ``carry`` (x0, res)."""
+    at G = 1 and ``bp`` columns: ``resume`` the nine blocks (x0, uinit, rx,
+    ry, ryaw, ox, oy, oyaw, res), ``dataflow`` (x, done), ``carry`` (x0,
+    res)."""
     def normal(rng, rows):
-        return torch.as_tensor(rng.normal(size=(rows, BP)), dtype=torch.float32, device=device)
+        return torch.as_tensor(rng.normal(size=(rows, bp)), dtype=torch.float32, device=device)
 
     rng = np.random.default_rng(0)
     resume = [normal(rng, r) for r in (8, 2 * NH, W, W, W, M * NH, M * NH, M * NH, 8)]
     rng = np.random.default_rng(0)
     x = normal(rng, 8)
-    done = torch.as_tensor(rng.integers(0, 2, size=(BP,)), dtype=torch.int32, device=device)
+    done = torch.as_tensor(rng.integers(0, 2, size=(bp,)), dtype=torch.int32, device=device)
     rng = np.random.default_rng(0)
     carry_in = [normal(rng, 8), normal(rng, 8)]
     return {"resume": resume, "dataflow": (x, done), "carry": carry_in}
 
 
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True for contiguous float32 CUDA tensors on one device, False for
-    CPU tensors; raises on anything else."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for t in ts:
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 2:
-            raise ValueError(f"expected contiguous 2-d float32, got {t.dtype} {tuple(t.shape)}")
-    return True
+def _checked(kernel: str, ins: tuple, rows: int = 8):
+    """One pass over a launch's inputs: each a 2-d block of at least
+    ``rows`` rows and the first one's columns, all on one device. Returns
+    (Bp, CUDA device index, the inputs' pointers), the index None for CPU
+    tensors; on CUDA each must also be contiguous float32. For the float4
+    kernels each must start on 16 bytes, on every device, so that what runs
+    on the CPU runs on the card. Raises on anything else."""
+    first = ins[0]
+    Bp = first.shape[1] if first.dim() == 2 else -1
+    dev, cuda = first.get_device(), first.is_cuda
+    aligned = kernel in _QUADS
+    ptrs = []
+    for t in ins:
+        shape, ptr = t.shape, t.data_ptr()
+        if len(shape) != 2 or shape[1] != Bp or shape[0] < rows:
+            raise ValueError(f"expected ({rows}+, {Bp}) blocks, got {tuple(shape)}")
+        if t.get_device() != dev:
+            raise ValueError(f"tensors on several devices: {first.device}, {t.device}")
+        if cuda and (t.dtype is not torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"expected contiguous float32, got {t.dtype} {tuple(shape)}")
+        if aligned and ptr % 16:
+            raise ValueError(f"{kernel}: every block must be 16-byte aligned; a view at "
+                             f"{ptr:#x} is not")
+        ptrs.append(ptr)
+    if not cuda and first.device.type != "cpu":
+        raise ValueError(f"unsupported device {first.device}")
+    return Bp, dev if cuda else None, ptrs
 
 
-def _launch(name: str, kernel: str, out: torch.Tensor, *args) -> None:
-    fn = getattr(load_library()[0], kernel)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+def _launch(name: str, kernel: str, dev: int, Bp: int, *args) -> None:
+    """Launch the C entry ``kernel`` on device ``dev``'s current stream with
+    ``args`` (pointers, then ints) and ``launch_plan``'s shape; raises on a
+    launch error and counts the launch under ``name``."""
+    fns, raw_stream, current_device = _bound()
+    grid, block = launch_plan(kernel, Bp)
+    if dev == current_device():
+        err = fns[kernel](*args, grid, block, raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fns[kernel](*args, grid, block, raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launches[name] += 1
 
 
-def _columns(*ts: torch.Tensor, rows: int) -> int:
-    Bp = ts[0].shape[1]
-    for t in ts:
-        if t.dim() != 2 or t.shape[1] != Bp or t.shape[0] < rows:
-            raise ValueError(f"expected ({rows}+, {Bp}) blocks, got {tuple(t.shape)}")
-    return Bp
+def _out8(like, Bp: int):
+    """An uninitialised (8, Bp) float32 block beside ``like`` (the cheaper
+    ``empty_like`` when ``like`` has that shape)."""
+    return torch.empty_like(like) if like.shape[0] == 8 else like.new_empty((8, Bp))
 
 
 def resume_echo_ref(x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res):
@@ -130,11 +187,11 @@ def resume_echo(x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res):
     """K2 (8, Bp): the echo of ``res`` through a launch that reads every
     other block."""
     ins = (x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res)
-    Bp = _columns(*ins, rows=8)
-    if not _on_cuda(*ins):
+    Bp, dev, ptrs = _checked("min_resume_echo", ins)
+    if dev is None:
         return resume_echo_ref(*ins)
-    out = torch.empty((8, Bp), dtype=torch.float32, device=res.device)
-    _launch("min_resume_echo", "min_resume_echo", out, *ins, out, Bp)
+    out = _out8(res, Bp)
+    _launch("min_resume_echo", "min_resume_echo", dev, Bp, *ptrs, out.data_ptr(), Bp)
     return out
 
 
@@ -146,12 +203,12 @@ def dataflow_k1_ref(x):
 
 def dataflow_k1(x):
     """K3 ``k1`` on x (8, Bp)."""
-    Bp = _columns(x, rows=8)
-    if not _on_cuda(x):
+    Bp, dev, ptrs = _checked("min_dataflow_k1", (x,))
+    if dev is None:
         return dataflow_k1_ref(x)
-    u = torch.empty((2 * NH, Bp), dtype=torch.float32, device=x.device)
-    s = torch.empty((8, Bp), dtype=torch.float32, device=x.device)
-    _launch("min_dataflow_k1", "min_dataflow_k1", u, x, u, s, Bp)
+    u = x.new_empty((2 * NH, Bp))
+    s = _out8(x, Bp)
+    _launch("min_dataflow_k1", "min_dataflow_k1", dev, Bp, *ptrs, u.data_ptr(), s.data_ptr(), Bp)
     return u, s
 
 
@@ -161,12 +218,12 @@ def dataflow_k2_ref(u, s):
 
 
 def dataflow_k2(u, s):
-    """K3 ``k2`` on u (64, Bp) and s (8, Bp)."""
-    Bp = _columns(u, s, rows=8)
-    if not _on_cuda(u, s):
+    """K3 ``k2`` on u (64, Bp) and s (8, Bp); on CUDA both 16-byte aligned."""
+    Bp, dev, ptrs = _checked("min_dataflow_k2", (u, s))
+    if dev is None:
         return dataflow_k2_ref(u, s)
-    out = torch.empty((8, Bp), dtype=torch.float32, device=s.device)
-    _launch("min_dataflow_k2", "min_dataflow_k2", out, u, s, out, Bp)
+    out = _out8(s, Bp)
+    _launch("min_dataflow_k2", "min_dataflow_k2", dev, Bp, *ptrs, out.data_ptr(), Bp)
     return out
 
 
@@ -189,20 +246,39 @@ def carry_ref(x0, res, trips: int):
     return torch.cat(rows + [res.new_zeros((2, res.shape[1]))])
 
 
-def _carry(name: str, x0, res, trips: int):
-    Bp = _columns(x0, res, rows=8)
-    if not _on_cuda(x0, res):
+def carry_trips(x0, res, trips: int, name: str = "min_carry"):
+    """The carry loop with ``trips`` >= 0 trips (counted under ``name``);
+    on CUDA, x0 and res 16-byte aligned."""
+    if trips < 0:
+        raise ValueError(f"trips must be >= 0, got {trips}")
+    Bp, dev, ptrs = _checked("min_carry", (x0, res))
+    if dev is None:
         return carry_ref(x0, res, trips)
-    out = torch.empty((8, Bp), dtype=torch.float32, device=res.device)
-    _launch(name, "min_carry", out, x0, res, out, Bp, trips)
+    out = _out8(res, Bp)
+    _launch(name, "min_carry", dev, Bp, *ptrs, out.data_ptr(), Bp, trips)
     return out
 
 
 def carry(x0, res):
     """K4: the 2-trip carry loop."""
-    return _carry("min_carry", x0, res, 2)
+    return carry_trips(x0, res, 2)
 
 
 def zerotrip(x0, res):
     """K5: the same loop with 0 trips."""
-    return _carry("min_zerotrip", x0, res, 0)
+    return carry_trips(x0, res, 0, "min_zerotrip")
+
+
+# One PyTorch call of each kernel's function, on the wrapper's arguments,
+# bitwise its plain version (tests/test_torch_debug_repros.py), or None
+# where no one call computes it: K2 adds 0 x for each other block x (a NaN
+# or inf there gives NaN, res = -0 plus +0 gives +0), K4 adds 0 x0[0]
+# twice to rows 0..5 (the same) and writes zeros over rows 6..7, K3 k1
+# writes two outputs.
+LIBRARY = {
+    "min_resume_echo": None,
+    "min_dataflow_k1": None,
+    "min_dataflow_k2": lambda u, s: torch.add(s, u[:8]),
+    "min_carry": None,
+    "min_zerotrip": lambda x0, res: F.pad(res[:6], (0, 0, 0, 2)),
+}

@@ -1,5 +1,6 @@
 // CPU stand-in for the CUDA runtime, enough to run the solve kernel's
-// source (ilqr_tpu_torch/csrc/cilqr_kernel.cu) on the host in tests: one
+// source (ilqr_tpu_torch/csrc/cilqr_kernel.cu) and the repro kernels'
+// (ilqr_tpu_torch/csrc/debug_repros.cu) on the host in tests: one
 // std::thread per CUDA thread, a std::barrier per warp for __syncwarp and
 // the shuffles (every lane of a warp must reach each of them, as on the
 // card with a full mask), one block at a time, a block's dynamic shared
@@ -61,6 +62,11 @@ T __shfl_down_sync(unsigned, T v, unsigned d) {
   const int src = threadIdx.x % 32 + d;
   return emu_exchange(v, src, src < 32);
 }
+
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }

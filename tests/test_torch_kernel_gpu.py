@@ -113,13 +113,16 @@ def test_kernel_resume_matches_plain_f64(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("repro", ["resume_echo", "dataflow", "carry", "zerotrip"])
-def test_debug_repro_kernels_bitwise(cuda_device, repro):
+@pytest.mark.parametrize("bp", [1, 5, 2047, 2048, 2049])
+@pytest.mark.parametrize("repro", ["resume_echo", "dataflow", "carry", "zerotrip", "carry_1trip"])
+def test_debug_repro_kernels_bitwise(cuda_device, repro, bp):
     """The ``tools/debug`` repro kernels equal their plain versions bit for
-    bit on the repros' inputs, one launch each."""
+    bit on the repros' inputs at ``bp`` columns (odd widths: a float4 quad
+    of ``carry`` straddles its zero rows), one launch each; ``carry`` with
+    2, 0 and 1 trips."""
     from ilqr_tpu_torch.ops.cuda import debug_repros as dr
 
-    ins = dr.repro_inputs(cuda_device)
+    ins = dr.repro_inputs(cuda_device, bp)
     before = sum(dr.launches.values())
     if repro == "resume_echo":
         got, want = (dr.resume_echo(*ins["resume"]),), (dr.resume_echo_ref(*ins["resume"]),)
@@ -132,12 +135,14 @@ def test_debug_repro_kernels_bitwise(cuda_device, repro):
         want = (out, u, s)
     else:
         x0, res = ins["carry"]
-        got = (getattr(dr, repro)(x0, res),)
-        want = (dr.carry_ref(x0, res, 2 if repro == "carry" else 0),)
+        fn, trips = {"carry": (dr.carry, 2), "zerotrip": (dr.zerotrip, 0),
+                     "carry_1trip": (lambda a, b: dr.carry_trips(a, b, 1), 1)}[repro]
+        got = (fn(x0, res),)
+        want = (dr.carry_ref(x0, res, trips),)
     torch.cuda.synchronize()
     assert sum(dr.launches.values()) - before == (2 if repro == "dataflow" else 1)
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 # the projection modes (ilqr_tpu/ops/pallas/cilqr_kernel.py:267, :368), with
