@@ -139,14 +139,20 @@ non-zero and prints no final line:
 7. (run right after phase 0, while the host is quiet) the ``tools/debug``
    repro kernels: each flow once with the counts at 0,
    then each kernel bitwise equal to its plain version and to the repro's
-   closed form; ``carry`` (0, 1 and 2 trips) and ``dataflow_k2`` bitwise
-   (int32 views) at 1, 5, 2047, 2048 and 2049 columns, one launch each;
-   each library call of ``debug_repros.LIBRARY`` bitwise its plain
-   version; each kernel's time per call (200 calls between CUDA events,
-   the launch path included) and device time (``torch.profiler``'s
-   device spans of 200 calls) against its library call's, in the order
+   closed form; every kernel (``carry`` with 0, 1 and 2 trips) bitwise
+   (int32 views) at 1, 5, 2047, 2048 and 2049 columns, on the repros'
+   inputs and on planted -0, +-inf and NaN, one launch each; each library
+   call of ``debug_repros.LIBRARY`` bitwise its plain version; each
+   kernel's time per call (200 calls between CUDA events, the launch path
+   included) and device time (``torch.profiler``'s device spans of 200
+   calls; a window that records none is opened again, up to three, then
+   the calls are timed between CUDA events queued behind a spin kernel,
+   each counted in ``profiler_misses``; that fallback's time of every
+   kernel is printed beside) against its library call's, in the order
    kernel, library, library, kernel, twice; the plain version's time per
-   call; the float4 kernels' device time in blocks of 32, 64 and 128;
+   call; every kernel's device time in blocks of 32, 64 and 128; the grid
+   and block of ``torch.add``'s kernel beside ``dataflow_k2``'s, from the
+   trace;
 10. the demos and the eager solver's options, plain PyTorch in float64 on
    the card (no kernel of this script), each held to the port's own CPU
    run: (a) ``lqr_demo_batch_x0`` over 8192 seeded starts of the reference
@@ -905,6 +911,14 @@ def profile_run(fn):
                 top_device_ms=dict(by_name.most_common(6)))
 
 
+# profiled windows ``device_ms`` opens before it gives up on the profiler:
+# now and then one records no device span on a fresh machine; the empty
+# windows and the fallbacks are counted here and printed by phase 7
+PROFILE_TRIES = 3
+QUEUE_SPIN_CYCLES = 100_000_000  # ~50 ms at the card's clock: longer than the host queues
+profiler_misses = collections.Counter()
+
+
 def device_ms(fn, reps):
     """Device milliseconds a call of ``fn`` takes, without the host's launch
     path: over ``reps`` calls after a warm-up, per name of the device spans
@@ -914,7 +928,8 @@ def device_ms(fn, reps):
     profiler drops (a sum over the recorded spans per call read a dropped
     span as a fast call, below the launch floor); the trimmed mean against
     outliers, and unlike the median it resolves below the spans' 32 ns
-    timestamp step."""
+    timestamp step. A window with no device span is opened again, up to
+    ``PROFILE_TRIES`` windows; then ``queued_ms`` times the calls."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -922,21 +937,51 @@ def device_ms(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = collections.defaultdict(list)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans[e.name].append(e.time_range.elapsed_us())
-    check(spans, "the profiler recorded no device activity")
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans[e.name].append(e.time_range.elapsed_us())
+        if spans:
+            break
+        profiler_misses["empty_windows"] += 1
+    else:
+        profiler_misses["queued_fallbacks"] += 1
+        return queued_ms(fn, reps)
     total = 0.0
     for v in spans.values():
         v = np.sort(v)
         cut = len(v) // 10
         total += float(v[cut:len(v) - cut].mean()) * max(1, round(len(v) / reps))
     return total / 1e3
+
+
+def queued_ms(fn, reps):
+    """Device milliseconds a call of ``fn`` takes between two CUDA events,
+    its ``reps`` calls queued behind a spin kernel so the host's launch
+    path is off the clock (the device's gaps between kernels are on it).
+    Fails if the host took longer to queue them than the spin lasted."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    spin.record()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    check(queued_s * 1e3 < spin.elapsed_time(start),
+          f"queued_ms: the host queued for {queued_s * 1e3:.3f} ms, longer than the spin")
+    return start.elapsed_time(end) / reps
 
 
 def stats_ms(values):
@@ -1496,12 +1541,13 @@ REPROS = {
 }
 
 
-# widths at which the float4 kernels are held bitwise to their plain
-# versions on the card (odd ones: a quad of ``carry`` straddles its zero
-# rows), one launch each
+# widths at which every repro kernel is held bitwise to its plain version
+# on the card, on the repros' inputs and on planted -0 / +-inf / NaN (odd
+# ones: a quad straddles two rows), one launch each
 REPRO_WIDTHS = (1, 5, 2047, 2048, 2049)
 REPRO_REPS = 200
-REPRO_BLOCKS = (32, 64, 128)  # blocks timed for the float4 kernels
+REPRO_BLOCKS = (32, 64, 128)  # blocks timed for every repro kernel
+REPRO_OUTS = {"min_dataflow_k1": (64, 8)}  # output rows per column, (8,) for the others
 
 
 def repro_calls(dr, ins):
@@ -1525,14 +1571,15 @@ def repro_at_block(dr, name, args, block):
     fns, raw_stream, _ = dr._bound()
     entry = "min_carry" if name == "min_zerotrip" else name
     Bp = args[0].shape[1]
-    trips = () if name == "min_dataflow_k2" else (2 if name == "min_carry" else 0,)
+    trips = {"min_carry": (2,), "min_zerotrip": (0,)}.get(name, ())
+    plan = dr.launch_plan(entry, Bp, block)
 
     def run():
-        out = args[1].new_empty((8, Bp))
-        err = fns[entry](*(a.data_ptr() for a in (*args, out)), Bp, *trips,
-                         *dr.launch_plan(entry, Bp, block), raw_stream(0))
+        outs = [args[0].new_empty((r, Bp)) for r in REPRO_OUTS.get(entry, (8,))]
+        err = fns[entry](*(a.data_ptr() for a in (*args, *outs)), Bp, *trips, *plan,
+                         raw_stream(0))
         check(err == 0, f"{name} at block {block}: cudaError_t {err}")
-        return out
+        return outs
     return run
 
 
@@ -1551,13 +1598,37 @@ def abba_ms(fns, reps=REPRO_REPS):
     return got
 
 
+def launch_shapes(fn):
+    """[(kernel name, grid, block)] of the device kernels one call of ``fn``
+    launches, from ``torch.profiler``'s trace (its kernel events carry
+    them)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    return [(e["name"][:80], e.get("args", {}).get("grid"), e.get("args", {}).get("block"))
+            for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+
+
 def phase_debug_repros(card):
     """7: each repro flow once with the counts at 0, then each kernel held
     bitwise to its plain version and to the repro's closed form
-    (``want_*`` in tools/debug), ``carry`` (0, 1, 2 trips) and
-    ``dataflow_k2`` also at ``REPRO_WIDTHS``; each kernel timed against the
-    one library call of its function (``dr.LIBRARY``) in the order kernel,
-    library, library, kernel, twice."""
+    (``want_*`` in tools/debug); every kernel (``carry`` with 0, 1, 2
+    trips) also at ``REPRO_WIDTHS`` on the repros' inputs and on planted
+    ones; each kernel timed against the one library call of its function
+    (``dr.LIBRARY``) in the order kernel, library, library, kernel, twice,
+    and in blocks of ``REPRO_BLOCKS``; ``torch.add``'s launch shape beside
+    ``dataflow_k2``'s."""
     import numpy as np
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
@@ -1596,23 +1667,32 @@ def phase_debug_repros(card):
         b = plain[key] if isinstance(plain[key], tuple) else (plain[key],)
         check(all(torch.equal(p, q) for p, q in zip(a, b)), f"{key}: kernel differs from plain")
         check(closed[key], f"{key}: differs from the repro's closed form")
-    # the float4 kernels at odd widths, bitwise (int32 views), one launch each
+    # every kernel at odd widths, on the repros' inputs and planted ones,
+    # bitwise (int32 views; the card's NaN is one), one launch each
     widths = {}
     for bp in REPRO_WIDTHS:
-        w_ins = dr.repro_inputs(DEVICE, bp)
-        wx0, wres = w_ins["carry"]
-        wu, ws = dr.dataflow_k1_ref(w_ins["dataflow"][0])
-        cases = [(f"carry_{t}", lambda t=t: dr.carry_trips(wx0, wres, t),
-                  dr.carry_ref(wx0, wres, t)) for t in (0, 1, 2)]
-        cases.append(("dataflow_k2", lambda: dr.dataflow_k2(wu, ws), dr.dataflow_k2_ref(wu, ws)))
-        for tag, fn, want in cases:
-            before = sum(dr.launches.values())
-            out = fn()
-            torch.cuda.synchronize()
-            check(sum(dr.launches.values()) - before == 1, f"{tag} at {bp}: not one launch")
-            check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
-                  f"{tag} at {bp} columns differs from its plain version")
-        widths[bp] = "bitwise"
+        for planted in (False, True):
+            w_ins = dr.repro_inputs(DEVICE, bp, planted)
+            wx0, wres = w_ins["carry"]
+            echo, wx = w_ins["resume"], w_ins["dataflow"][0]
+            wu, ws = dr.dataflow_k1_ref(wx)
+            cases = [(f"carry_{t}", lambda t=t: (dr.carry_trips(wx0, wres, t),),
+                      (dr.carry_ref(wx0, wres, t),)) for t in (0, 1, 2)]
+            cases += [("resume_echo", lambda: (dr.resume_echo(*echo),),
+                       (dr.resume_echo_ref(*echo),)),
+                      ("dataflow_k1", lambda: dr.dataflow_k1(wx), (wu, ws)),
+                      ("dataflow_k2", lambda: (dr.dataflow_k2(wu, ws),),
+                       (dr.dataflow_k2_ref(wu, ws),))]
+            for tag, fn, want in cases:
+                before = sum(dr.launches.values())
+                out = fn()
+                torch.cuda.synchronize()
+                check(sum(dr.launches.values()) - before == 1, f"{tag} at {bp}: not one launch")
+                check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                          for a, b in zip(out, want)),
+                      f"{tag} at {bp} columns ({'planted' if planted else 'repro'} inputs) "
+                      "differs from its plain version")
+        widths[bp] = "bitwise, repro and planted"
     calls = repro_calls(dr, ins)
     for name, (kernel, ref, args) in calls.items():
         lib = dr.LIBRARY[name]
@@ -1620,8 +1700,9 @@ def phase_debug_repros(card):
             check(torch.equal(lib(*args).view(torch.int32), ref(*args).view(torch.int32)),
                   f"{name}: the library call is not its function")
     blocks = {}
-    for name in ("min_dataflow_k2", "min_carry", "min_zerotrip"):
-        kernel, ref, args = calls[name]
+    for name in ("min_resume_echo", "min_dataflow_k1", "min_dataflow_k2", "min_carry",
+                 "min_zerotrip"):
+        args = calls[name][2]
         blocks[name] = [(b, device_ms(repro_at_block(dr, name, args, b), REPRO_REPS))
                         for b in REPRO_BLOCKS + REPRO_BLOCKS[::-1]]
     kernels, timing = [], {}
@@ -1647,9 +1728,17 @@ def phase_debug_repros(card):
             "library_device_ms": mean["library"]["device_ms"] if lib else None,
             "batch": dr.BP, "block": dr.launch_plan(
                 "min_carry" if name == "min_zerotrip" else name, dr.BP)[1]})
+    # the fallback of device_ms on every kernel, beside the profiler's time
+    queued = {name: queued_ms(lambda k=kernel, a=args: k(*a), REPRO_REPS)
+              for name, (kernel, _, args) in calls.items()}
+    _, _, k2_args = calls["min_dataflow_k2"]
+    shapes = {"min_dataflow_k2": launch_shapes(lambda: dr.dataflow_k2(*k2_args)),
+              "torch.add": launch_shapes(lambda: dr.LIBRARY["min_dataflow_k2"](*k2_args))}
     say("phase7_debug_repros", card=card, launches=launches, bitwise_plain=True,
         closed_form=closed, widths_bitwise=widths, order="AB BA AB BA", timing=timing,
-        block_device_ms=blocks, phase_s=time.perf_counter() - t_phase, kernels=kernels)
+        block_device_ms=blocks, launch_shapes=shapes, queued_ms=queued,
+        profiler_misses=dict(profiler_misses),
+        phase_s=time.perf_counter() - t_phase, kernels=kernels)
     return kernels
 
 

@@ -16,15 +16,17 @@
 //
 // Bound: bytes. Each is a copy or an affine map of a few hundred KB, so at
 // these shapes a launch costs its fixed overhead (~1 us) against a bytes
-// bound of 0.03-0.2 us. dataflow_k2 and carry are flat passes over their
-// 8 Bp output floats, a float4 (16 bytes) a thread, neighbouring threads on
-// neighbouring quads, in small blocks so that the quads spread over many
-// SMs; resume_echo and dataflow_k1 are one thread per element. The launch
-// shape (grid, block) comes from the host (debug_repros.launch_plan); each
-// entry checks that it covers the work. Every product and sum is written
-// with the round-to-nearest intrinsics, so nvcc contracts nothing into an
-// FMA: 3x - 5 is rounded twice, as the repros' numpy expectation and the
-// plain versions in ilqr_tpu_torch/ops/cuda/debug_repros.py round it.
+// bound of 0.03-0.2 us. Every kernel is a flat pass over the 2 Bp quads
+// (float4s, 16 bytes) of an 8-row block: thread q owns quad q, neighbouring
+// threads on neighbouring quads, in small blocks so that the quads spread
+// over many SMs. Rows are column-fastest and 8 Bp is a multiple of 4, so a
+// quad may straddle two rows but never leaves the block. The launch shape
+// (grid, block) comes from the host (debug_repros.launch_plan); each entry
+// checks that it covers the 2 Bp quads and that every pointer starts on 16
+// bytes. Every product and sum is written with the round-to-nearest
+// intrinsics, so nvcc contracts nothing into an FMA: 3x - 5 is rounded
+// twice, as the repros' numpy expectation and the plain versions in
+// ilqr_tpu_torch/ops/cuda/debug_repros.py round it.
 
 #include <cuda_runtime.h>
 
@@ -32,39 +34,57 @@
 
 namespace {
 
+// a + 0 x per component, rounded as the repro's `a + 0 * x`.
+__device__ __forceinline__ float4 add_zero_times(float4 a, float4 x) {
+  return make_float4(__fadd_rn(a.x, __fmul_rn(0.f, x.x)), __fadd_rn(a.y, __fmul_rn(0.f, x.y)),
+                     __fadd_rn(a.z, __fmul_rn(0.f, x.z)), __fadd_rn(a.w, __fmul_rn(0.f, x.w)));
+}
+
+// m x + c per component, the product rounded, then the sum.
+__device__ __forceinline__ float4 affine(float4 x, float m, float c) {
+  return make_float4(__fadd_rn(__fmul_rn(m, x.x), c), __fadd_rn(__fmul_rn(m, x.y), c),
+                     __fadd_rn(__fmul_rn(m, x.z), c), __fadd_rn(__fmul_rn(m, x.w), c));
+}
+
 // K2: out = res + 0 x0 + 0 uinit + 0 rx + 0 ry + 0 ryaw + 0 ox + 0 oy + 0 oyaw
-// over the first 8 rows of every input (n = 8 Bp elements), left to right.
-__global__ void resume_echo(const float* __restrict__ x0, const float* __restrict__ uinit,
-                            const float* __restrict__ rx, const float* __restrict__ ry,
-                            const float* __restrict__ ryaw, const float* __restrict__ ox,
-                            const float* __restrict__ oy, const float* __restrict__ oyaw,
-                            const float* __restrict__ res, float* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float a = __fadd_rn(res[i], __fmul_rn(0.f, x0[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, uinit[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, rx[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, ry[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, ryaw[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, ox[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, oy[i]));
-  a = __fadd_rn(a, __fmul_rn(0.f, oyaw[i]));
-  out[i] = a;
+// over the first 8 rows of every input (nq = 2 Bp quads, one a thread). The
+// nine float4 loads go first, all in flight at once: that takes 36
+// registers for the loaded values, and without the launch bounds ptxas
+// keeps to 32 (full occupancy) and sends the loads in two waves, which cost
+// ~0.15 us more on the H100. So a block has at most 128 threads (the entry
+// refuses more). Then each component's chain runs left to right, as the
+// repro adds, so NaN, inf and -0 + 0 = +0 come out as the plain version's.
+__global__ void __launch_bounds__(128, 1)
+    resume_echo(const float4* __restrict__ x0, const float4* __restrict__ uinit,
+                const float4* __restrict__ rx, const float4* __restrict__ ry,
+                const float4* __restrict__ ryaw, const float4* __restrict__ ox,
+                const float4* __restrict__ oy, const float4* __restrict__ oyaw,
+                const float4* __restrict__ res, float4* __restrict__ out, int nq) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const float4 in[8] = {x0[q], uinit[q], rx[q], ry[q], ryaw[q], ox[q], oy[q], oyaw[q]};
+  float4 a = res[q];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a = add_zero_times(a, in[k]);
+  out[q] = a;
 }
 
 // K3 k1: x (8, Bp) -> u (64, Bp) with rows 0..7 = 2x + 1 and rows 8..63 = 0,
-// and s (8, Bp) = 3x - 5; n8 = 8 Bp, nu = 64 Bp.
-__global__ void dataflow_k1(const float* __restrict__ x, float* __restrict__ u,
-                            float* __restrict__ s, int n8, int nu) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nu) return;
-  if (i < n8) {
-    const float xi = x[i];
-    u[i] = __fadd_rn(__fmul_rn(2.f, xi), 1.f);
-    s[i] = __fadd_rn(__fmul_rn(3.f, xi), -5.f);
-  } else {
-    u[i] = 0.f;
-  }
+// and s (8, Bp) = 3x - 5. Thread q owns quad q of x (nq = 2 Bp quads): one
+// float4 load, u's quad q and s's quad q. Rows 8..63 of u are 7 nq quads
+// more, and thread q stores their quads q + k nq, k = 1..7: every thread
+// the same nine float4 stores, each of the seven zero stretches written by
+// neighbouring threads on neighbouring quads.
+__global__ void dataflow_k1(const float4* __restrict__ x, float4* __restrict__ u,
+                            float4* __restrict__ s, int nq) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const float4 v = x[q];
+  u[q] = affine(v, 2.f, 1.f);
+  s[q] = affine(v, 3.f, -5.f);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) u[q + k * nq] = zero;
 }
 
 // K3 k2: out (8, Bp) = s + u[0:8]. Rows 0..7 of u are its first 8 Bp floats,
@@ -154,7 +174,11 @@ bool covers(long long threads, int grid, int block) {
          static_cast<long long>(grid) * block >= threads;
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+// Every pointer starts on 16 bytes (a float4).
+template <class... P>
+bool aligned16(const P*... p) {
+  return ((reinterpret_cast<std::uintptr_t>(p) % 16 == 0) && ...);
+}
 
 // Bp is valid when 64 Bp, the largest element count, fits an int.
 bool columns_ok(int Bp) { return Bp >= 0 && Bp < (1 << 25); }
@@ -172,10 +196,13 @@ extern "C" int min_resume_echo(const float* x0, const float* uinit, const float*
                                int Bp, int grid, int block, void* stream) {
   if (!columns_ok(Bp)) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  const int n = 8 * Bp;
-  if (!covers(n, grid, block)) return cudaErrorInvalidValue;
+  if (!covers(2 * Bp, grid, block) || block > 128 ||
+      !aligned16(x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res, out))
+    return cudaErrorInvalidValue;
+  const auto f4 = [](const float* p) { return reinterpret_cast<const float4*>(p); };
   resume_echo<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res, out, n);
+      f4(x0), f4(uinit), f4(rx), f4(ry), f4(ryaw), f4(ox), f4(oy), f4(oyaw), f4(res),
+      reinterpret_cast<float4*>(out), 2 * Bp);
   return status();
 }
 
@@ -183,8 +210,10 @@ extern "C" int min_dataflow_k1(const float* x, float* u, float* s, int Bp, int g
                                void* stream) {
   if (!columns_ok(Bp)) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  if (!covers(64 * Bp, grid, block)) return cudaErrorInvalidValue;
-  dataflow_k1<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(x, u, s, 8 * Bp, 64 * Bp);
+  if (!covers(2 * Bp, grid, block) || !aligned16(x, u, s)) return cudaErrorInvalidValue;
+  dataflow_k1<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(u),
+      reinterpret_cast<float4*>(s), 2 * Bp);
   return status();
 }
 
@@ -192,8 +221,7 @@ extern "C" int min_dataflow_k2(const float* u, const float* s, float* out, int B
                                int block, void* stream) {
   if (!columns_ok(Bp)) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  if (!covers(2 * Bp, grid, block) || !aligned16(u) || !aligned16(s) || !aligned16(out))
-    return cudaErrorInvalidValue;
+  if (!covers(2 * Bp, grid, block) || !aligned16(u, s, out)) return cudaErrorInvalidValue;
   dataflow_k2<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(u), reinterpret_cast<const float4*>(s),
       reinterpret_cast<float4*>(out), 2 * Bp);
@@ -204,8 +232,7 @@ extern "C" int min_carry(const float* x0, const float* res, float* out, int Bp, 
                          int grid, int block, void* stream) {
   if (!columns_ok(Bp) || trips < 0) return cudaErrorInvalidValue;
   if (Bp == 0) return cudaSuccess;
-  if (!covers(2 * Bp, grid, block) || !aligned16(x0) || !aligned16(res) || !aligned16(out))
-    return cudaErrorInvalidValue;
+  if (!covers(2 * Bp, grid, block) || !aligned16(x0, res, out)) return cudaErrorInvalidValue;
   carry<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       x0, res, reinterpret_cast<float4*>(out), Bp, trips);
   return status();

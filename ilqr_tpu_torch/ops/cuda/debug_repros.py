@@ -54,28 +54,24 @@ launches: collections.Counter = collections.Counter()
 _SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "debug_repros.cu"
 
 # Per C entry: the pointer arguments before Bp, the int arguments from Bp
-# on (grid and block last), output floats per column, floats a thread
-# writes, threads a block. The float4 kernels take small blocks, so that
-# the 4096 quads of Bp = 2048 spread over 32 SMs (128 was the best of 32,
-# 64 and 128 on the H100, chip_smoke.py phase 7).
+# on (grid and block last), threads a block. Every kernel is a flat pass of
+# one thread per float4 quad of an 8-row block, 2 Bp quads; small blocks
+# spread them over many SMs. Each block is the best of 32, 64 and 128 on
+# the H100 (chip_smoke.py phase 7); resume_echo takes at most 128.
 _ENTRIES = {
-    "min_resume_echo": (10, 3, 8, 1, 256),
-    "min_dataflow_k1": (3, 3, 64, 1, 256),
-    "min_dataflow_k2": (3, 3, 8, 4, 128),
-    "min_carry": (3, 4, 8, 4, 128),
+    "min_resume_echo": (10, 3, 64),
+    "min_dataflow_k1": (3, 3, 32),
+    "min_dataflow_k2": (3, 3, 128),
+    "min_carry": (3, 4, 128),
 }
-# the kernels that move float4s: every pointer 16-byte aligned
-_QUADS = ("min_dataflow_k2", "min_carry")
 
 
 def launch_plan(kernel: str, Bp: int, block: int | None = None) -> tuple[int, int]:
     """(grid, block) of a launch of the C entry ``kernel`` over Bp columns:
-    one thread per output element, or per quad of them for the float4
-    kernels, in blocks of ``block`` threads (the kernel's own by default)."""
-    _, _, rows, per_thread, default = _ENTRIES[kernel]
-    block = block or default
-    threads = rows * Bp // per_thread  # 8 Bp is a multiple of 4
-    return -(-threads // block), block
+    one thread per quad of an 8-row block (8 Bp is a multiple of 4), in
+    blocks of ``block`` threads (the kernel's own by default)."""
+    block = block or _ENTRIES[kernel][2]
+    return -(-2 * Bp // block), block
 
 
 def bind_library(lib):
@@ -83,7 +79,7 @@ def bind_library(lib):
     entry points on ``lib``; returns {entry name: bound function}."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fns = {}
-    for name, (ptrs, ints, *_) in _ENTRIES.items():
+    for name, (ptrs, ints, _) in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = [vp] * ptrs + [ci] * ints + [vp]
         fn.restype = ci
@@ -106,35 +102,56 @@ def _bound():
             torch._C._cuda_getDevice)
 
 
-def repro_inputs(device="cpu", bp: int = BP) -> dict:
+def _plant(t, every: int, value: float, start: int = 0):
+    """``t`` with ``value`` at every ``every``-th element from ``start`` (in
+    place)."""
+    t.view(-1)[start::every] = value
+    return t
+
+
+def repro_inputs(device="cpu", bp: int = BP, planted: bool = False) -> dict:
     """Each repro's inputs, made as the repro makes them (numpy, seed 0),
     at G = 1 and ``bp`` columns: ``resume`` the nine blocks (x0, uinit, rx,
     ry, ryaw, ox, oy, oyaw, res), ``dataflow`` (x, done), ``carry`` (x0,
-    res)."""
+    res). ``planted`` puts -0, +-inf and NaN at fixed strides: in the eight
+    blocks the echo multiplies by 0, +inf, -inf or NaN (0 inf is NaN) at
+    every 16th element, block j from element j, so that each element's
+    chain meets one NaN at most (IEEE 754 leaves open which NaN a sum of
+    two keeps, and the CPU's kernels differ in it), and -0 in its res;
+    -0, +-inf and NaN in x; -0 and -inf in the carries' res, and in their
+    x0 +inf and -1 (0 (-1) is -0)."""
     def normal(rng, rows):
         return torch.as_tensor(rng.normal(size=(rows, bp)), dtype=torch.float32, device=device)
 
+    inf, nan = float("inf"), float("nan")
     rng = np.random.default_rng(0)
     resume = [normal(rng, r) for r in (8, 2 * NH, W, W, W, M * NH, M * NH, M * NH, 8)]
     rng = np.random.default_rng(0)
     x = normal(rng, 8)
     done = torch.as_tensor(rng.integers(0, 2, size=(bp,)), dtype=torch.int32, device=device)
     rng = np.random.default_rng(0)
-    carry_in = [normal(rng, 8), normal(rng, 8)]
-    return {"resume": resume, "dataflow": (x, done), "carry": carry_in}
+    x0, res = normal(rng, 8), normal(rng, 8)
+    if planted:
+        for j, t in enumerate(resume[:-1]):
+            _plant(t, 16, (inf, -inf, nan)[j % 3], j)
+        _plant(resume[-1], 3, -0.0)
+        for every, value in ((3, -0.0), (5, inf), (7, -inf), (11, nan)):
+            _plant(x, every, value)
+        _plant(_plant(res, 3, -0.0), 7, -inf)
+        _plant(_plant(x0, 4, inf), 5, -1.0)
+    return {"resume": resume, "dataflow": (x, done), "carry": [x0, res]}
 
 
 def _checked(kernel: str, ins: tuple, rows: int = 8):
     """One pass over a launch's inputs: each a 2-d block of at least
-    ``rows`` rows and the first one's columns, all on one device. Returns
-    (Bp, CUDA device index, the inputs' pointers), the index None for CPU
-    tensors; on CUDA each must also be contiguous float32. For the float4
-    kernels each must start on 16 bytes, on every device, so that what runs
-    on the CPU runs on the card. Raises on anything else."""
+    ``rows`` rows and the first one's columns, all on one device, each
+    starting on 16 bytes (the kernels move float4s; checked on every device,
+    so that what runs on the CPU runs on the card). Returns (Bp, CUDA
+    device index, the inputs' pointers), the index None for CPU tensors; on
+    CUDA each must also be contiguous float32. Raises on anything else."""
     first = ins[0]
     Bp = first.shape[1] if first.dim() == 2 else -1
     dev, cuda = first.get_device(), first.is_cuda
-    aligned = kernel in _QUADS
     ptrs = []
     for t in ins:
         shape, ptr = t.shape, t.data_ptr()
@@ -144,7 +161,7 @@ def _checked(kernel: str, ins: tuple, rows: int = 8):
             raise ValueError(f"tensors on several devices: {first.device}, {t.device}")
         if cuda and (t.dtype is not torch.float32 or not t.is_contiguous()):
             raise ValueError(f"expected contiguous float32, got {t.dtype} {tuple(shape)}")
-        if aligned and ptr % 16:
+        if ptr % 16:
             raise ValueError(f"{kernel}: every block must be 16-byte aligned; a view at "
                              f"{ptr:#x} is not")
         ptrs.append(ptr)
@@ -185,7 +202,7 @@ def resume_echo_ref(x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res):
 
 def resume_echo(x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res):
     """K2 (8, Bp): the echo of ``res`` through a launch that reads every
-    other block."""
+    other block; every block 16-byte aligned."""
     ins = (x0, uinit, rx, ry, ryaw, ox, oy, oyaw, res)
     Bp, dev, ptrs = _checked("min_resume_echo", ins)
     if dev is None:
@@ -202,7 +219,7 @@ def dataflow_k1_ref(x):
 
 
 def dataflow_k1(x):
-    """K3 ``k1`` on x (8, Bp)."""
+    """K3 ``k1`` on x (8, Bp), 16-byte aligned."""
     Bp, dev, ptrs = _checked("min_dataflow_k1", (x,))
     if dev is None:
         return dataflow_k1_ref(x)
@@ -218,7 +235,7 @@ def dataflow_k2_ref(u, s):
 
 
 def dataflow_k2(u, s):
-    """K3 ``k2`` on u (64, Bp) and s (8, Bp); on CUDA both 16-byte aligned."""
+    """K3 ``k2`` on u (64, Bp) and s (8, Bp), both 16-byte aligned."""
     Bp, dev, ptrs = _checked("min_dataflow_k2", (u, s))
     if dev is None:
         return dataflow_k2_ref(u, s)
@@ -248,7 +265,7 @@ def carry_ref(x0, res, trips: int):
 
 def carry_trips(x0, res, trips: int, name: str = "min_carry"):
     """The carry loop with ``trips`` >= 0 trips (counted under ``name``);
-    on CUDA, x0 and res 16-byte aligned."""
+    x0 and res 16-byte aligned."""
     if trips < 0:
         raise ValueError(f"trips must be >= 0, got {trips}")
     Bp, dev, ptrs = _checked("min_carry", (x0, res))

@@ -19,7 +19,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __align__(n) alignas(n)
 #define __shared__

@@ -31,28 +31,17 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
-def _planted(t, every, value):
-    """A copy of ``t`` with ``value`` at every ``every``-th element."""
-    t = t.clone()
-    t.view(-1)[::every] = value
-    return t
-
-
 def _k2_inputs(bp, planted):
     x = dr.repro_inputs(bp=bp)["dataflow"][0]
     u, s = dr.dataflow_k1_ref(x)
     if planted:
-        u = _planted(_planted(u, 5, float("inf")), 7, -0.0)
-        s = _planted(_planted(s, 3, float("-inf")), 7, -0.0)  # inf - inf at every 15th
+        dr._plant(dr._plant(u, 5, float("inf")), 7, -0.0)
+        dr._plant(dr._plant(s, 3, float("-inf")), 7, -0.0)  # inf - inf at every 15th
     return u, s
 
 
 def _carry_inputs(bp, planted):
-    x0, res = dr.repro_inputs(bp=bp)["carry"]
-    if planted:
-        res = _planted(_planted(res, 3, -0.0), 7, float("-inf"))
-        x0 = _planted(_planted(x0, 4, float("inf")), 5, -1.0)  # 0 inf = NaN, 0 -1 = -0
-    return x0, res
+    return dr.repro_inputs(bp=bp, planted=planted)["carry"]
 
 
 def test_library_table_entries():
@@ -88,18 +77,20 @@ def test_library_zerotrip_bitwise(bp, planted):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_launch_plan_covers_each_element_once(kernel):
-    """Each thread writes the elements the kernel's index map gives it
-    (one, or the quad 4q..4q+3); every output element exactly once, no
-    block idle, blocks of whole warps."""
+    """Thread q writes quad q (elements 4q..4q+3) of an 8-row block, and
+    ``dataflow_k1`` also u's zero quads q + k 2Bp, k = 1..7: every quad
+    exactly once, no block idle, blocks of whole warps."""
+    stretches = 8 if kernel == "min_dataflow_k1" else 1
     for bp in (1, 2, 3, 5, 2047, 2048, 2049, 8192):
-        grid, block = dr.launch_plan(kernel, bp)
-        _, _, rows, per_thread, _ = dr._ENTRIES[kernel]
-        n = rows * bp
-        thread = np.arange(grid * block)
-        live = thread[thread * per_thread < n]
-        elems = (live[:, None] * per_thread + np.arange(per_thread)).ravel()
-        assert np.array_equal(np.bincount(elems, minlength=n), np.ones(n, dtype=np.int64))
-        assert (grid - 1) * block < n // per_thread and block % 32 == 0 and block <= 1024
+        for block in (None, 32, 64, 128):
+            grid, block = dr.launch_plan(kernel, bp, block)
+            nq = 2 * bp
+            thread = np.arange(grid * block)
+            live = thread[thread < nq]
+            quads = (live[:, None] + nq * np.arange(stretches)).ravel()
+            assert np.array_equal(np.bincount(quads, minlength=nq * stretches),
+                                  np.ones(nq * stretches, dtype=np.int64))
+            assert (grid - 1) * block < nq and block % 32 == 0 and block <= 1024
 
 
 def _past(rows, cols, skip):
@@ -108,16 +99,25 @@ def _past(rows, cols, skip):
     return torch.zeros(rows * cols + skip)[skip:].view(rows, cols)
 
 
+def _echo_blocks(bp, skip):
+    """The echo's nine blocks, zeros, the last (res) ``skip`` floats into
+    its allocation."""
+    rows = (8, 2 * dr.NH, dr.W, dr.W, dr.W, dr.M * dr.NH, dr.M * dr.NH, dr.M * dr.NH)
+    return (*(torch.zeros(r, bp) for r in rows), _past(8, bp, skip))
+
+
 @pytest.mark.parametrize("fn, args", [
+    (dr.resume_echo, lambda: _echo_blocks(8, 1)),
+    (dr.dataflow_k1, lambda: (_past(8, 8, 2),)),
     (dr.dataflow_k2, lambda: (_past(64, 8, 1), torch.zeros(8, 8))),
     (dr.dataflow_k2, lambda: (torch.zeros(64, 8), _past(8, 8, 2))),
     (dr.carry, lambda: (torch.zeros(8, 6), _past(8, 6, 3))),
     (dr.zerotrip, lambda: (torch.zeros(8, 6), torch.zeros(9, 6)[1:])),
-], ids=["k2_u", "k2_s", "carry_res", "zerotrip_res"])
+], ids=["echo_res", "k1_x", "k2_u", "k2_s", "carry_res", "zerotrip_res"])
 def test_misaligned_view_raises(fn, args):
     """A block that does not start on 16 bytes (a view into its
-    allocation) is refused by the float4 kernels' wrappers, on every
-    device."""
+    allocation) is refused by every wrapper (the kernels move float4s), on
+    every device."""
     with pytest.raises(ValueError, match="16-byte aligned"):
         fn(*args())
 
@@ -163,10 +163,15 @@ def emulated(tmp_path_factory):
     return dr.bind_library(ctypes.CDLL(str(so)))
 
 
+# the outputs' fill before a launch: a NaN that no kernel computes, so an
+# element the kernel leaves unwritten shows
+FILL = 0x7FC5A5A5
+
+
 def _run(lib, kernel, bp, ins, outs, *ints, plan=None):
     """Call the emulated C entry ``kernel`` over fresh NaN-filled ``outs``
     (shapes) with ``launch_plan``'s shape; returns (status, outputs)."""
-    outs = [torch.full(shape, float("nan")) for shape in outs]
+    outs = [torch.full(shape, FILL, dtype=torch.int32).view(torch.float32) for shape in outs]
     ptrs = [t.data_ptr() for t in (*ins, *outs)]
     err = lib[kernel](*ptrs, bp, *ints, *(plan or dr.launch_plan(kernel, bp)), None)
     return err, outs
@@ -193,31 +198,58 @@ def test_emulated_carry_bitwise(emulated, bp, trips, planted):
     assert err == 0 and torch.equal(_bits(out), _bits(dr.carry_ref(x0, res, trips)))
 
 
-def test_emulated_unchanged_kernels_bitwise(emulated):
-    """The per-element kernels K2 and K3 k1 with the same plan at an odd
-    width."""
-    bp = 5
-    ins = dr.repro_inputs(bp=bp)
-    err, (out,) = _run(emulated, "min_resume_echo", bp, ins["resume"], [(8, bp)])
-    assert err == 0 and torch.equal(_bits(out), _bits(dr.resume_echo_ref(*ins["resume"])))
-    x = ins["dataflow"][0]
+@pytest.mark.parametrize("planted", [False, True], ids=["repro", "planted"])
+@pytest.mark.parametrize("bp", ODD_WIDTHS + (8,))
+def test_emulated_resume_echo_bitwise(emulated, bp, planted):
+    """Planted: +-inf and NaN in the blocks multiplied by 0 (0 inf is NaN),
+    -0 in res (-0 + 0 is +0)."""
+    ins = dr.repro_inputs(bp=bp, planted=planted)["resume"]
+    want = dr.resume_echo_ref(*ins)
+    assert bool(want.isnan().any()) == planted
+    err, (out,) = _run(emulated, "min_resume_echo", bp, ins, [(8, bp)])
+    assert err == 0 and torch.equal(_bits(out), _bits(want))
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["repro", "planted"])
+@pytest.mark.parametrize("bp", ODD_WIDTHS + (8,))
+def test_emulated_dataflow_k1_bitwise(emulated, bp, planted):
+    """Planted: -0, +-inf and NaN in x; rows 8..63 of u must be written."""
+    x = dr.repro_inputs(bp=bp, planted=planted)["dataflow"][0]
     err, (u, s) = _run(emulated, "min_dataflow_k1", bp, (x,), [(64, bp), (8, bp)])
     assert err == 0
     for a, b in zip((u, s), dr.dataflow_k1_ref(x)):
         assert torch.equal(_bits(a), _bits(b))
 
 
-def test_emulated_entries_refuse(emulated):
-    """A misaligned pointer, a plan short of the work and a negative trip
-    count return cudaErrorInvalidValue (1) before any launch."""
-    bp = 5
-    x0, res = dr.repro_inputs(bp=bp)["carry"]
-    flat = torch.zeros(8 * bp + 1)
-    grid, block = dr.launch_plan("min_carry", bp)
-    fn = emulated["min_carry"]
-    assert fn(x0.data_ptr(), flat[1:].data_ptr(), flat.data_ptr(), bp, 0, grid, block, None) == 1
-    assert fn(x0.data_ptr(), res.data_ptr(), flat.data_ptr(), bp, 0, 0, block, None) == 1
-    assert fn(x0.data_ptr(), res.data_ptr(), flat.data_ptr(), bp, -1, grid, block, None) == 1
-    u, s = _k2_inputs(bp, False)
-    err, _ = _run(emulated, "min_dataflow_k2", bp, (u, s), [(8, bp)], plan=(1, 2))
-    assert err == 1
+# per C entry: the rows of its inputs, of its outputs, its ints between Bp
+# and the plan
+ENTRY_ARGS = {
+    "min_resume_echo": ((8, 2 * dr.NH, dr.W, dr.W, dr.W, dr.M * dr.NH, dr.M * dr.NH,
+                         dr.M * dr.NH, 8), (8,), ()),
+    "min_dataflow_k1": ((8,), (2 * dr.NH, 8), ()),
+    "min_dataflow_k2": ((2 * dr.NH, 8), (8,), ()),
+    "min_carry": ((8, 8), (8,), (0,)),
+}
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_emulated_entries_refuse(emulated, kernel):
+    """A pointer that does not start on 16 bytes (each in turn), a plan
+    short of the work, for ``carry`` a negative trip count and for
+    ``resume_echo`` a block above its launch bounds (128) return
+    cudaErrorInvalidValue (1) before any launch."""
+    bp = 2049
+    in_rows, out_rows, ints = ENTRY_ARGS[kernel]
+    blocks = [torch.zeros(r * bp + 4) for r in (*in_rows, *out_rows)]
+    ptrs = [t.data_ptr() for t in blocks]
+    grid, block = dr.launch_plan(kernel, bp)
+    fn = emulated[kernel]
+    for k in range(len(ptrs)):
+        moved = ptrs[:k] + [ptrs[k] + 4] + ptrs[k + 1:]
+        assert fn(*moved, bp, *ints, grid, block, None) == 1
+    assert fn(*ptrs, bp, *ints, grid - 1, block, None) == 1
+    assert fn(*ptrs, bp, *ints, 0, block, None) == 1
+    if kernel == "min_carry":
+        assert fn(*ptrs, bp, -1, grid, block, None) == 1
+    if kernel == "min_resume_echo":
+        assert fn(*ptrs, bp, *dr.launch_plan(kernel, bp, 256), None) == 1

@@ -113,16 +113,18 @@ def test_kernel_resume_matches_plain_f64(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("planted", [False, True], ids=["repro", "planted"])
 @pytest.mark.parametrize("bp", [1, 5, 2047, 2048, 2049])
 @pytest.mark.parametrize("repro", ["resume_echo", "dataflow", "carry", "zerotrip", "carry_1trip"])
-def test_debug_repro_kernels_bitwise(cuda_device, repro, bp):
+def test_debug_repro_kernels_bitwise(cuda_device, repro, bp, planted):
     """The ``tools/debug`` repro kernels equal their plain versions bit for
     bit on the repros' inputs at ``bp`` columns (odd widths: a float4 quad
-    of ``carry`` straddles its zero rows), one launch each; ``carry`` with
-    2, 0 and 1 trips."""
+    straddles two rows, and one of ``carry`` its zero rows), and on planted
+    -0, +-inf and NaN (kernel and plain version both on the card, whose NaN
+    is one), one launch each; ``carry`` with 2, 0 and 1 trips."""
     from ilqr_tpu_torch.ops.cuda import debug_repros as dr
 
-    ins = dr.repro_inputs(cuda_device, bp)
+    ins = dr.repro_inputs(cuda_device, bp, planted)
     before = sum(dr.launches.values())
     if repro == "resume_echo":
         got, want = (dr.resume_echo(*ins["resume"]),), (dr.resume_echo_ref(*ins["resume"]),)
