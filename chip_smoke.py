@@ -183,6 +183,23 @@ non-zero and prints no final line:
    ``cilqr_demo``) with ``--no-viz`` as subprocesses on the card, beside
    (e): each exits 0 and prints its lines, with the CPU runs' numbers. No
    matplotlib is imported.
+11. the dry run and the port's surface (``apps.dryrun``): the card's name
+   and power limit; ``entry()`` (8 starts, float32, max_iter 100, the
+   eager ``solve_batch``); ``dryrun_multichip(1)`` with the kernel's counts
+   at 0 -- (a) the sharded eager solve, (b) the sharded kernel (barrier,
+   cold, cap 2), (c) a 2-tick ALM warm episode through the scan, (d) the
+   chunked sharded episode (4 ticks, chunks of 2, cap 2); the kernel must
+   launch in (b)-(d), the barrier instantiation in (b) and the ALM one in
+   (c) and (d), and each leg's rows must be bitwise those of the same call
+   over the whole batch with no mesh (``single_device_legs``); each leg's
+   wall; the oracle checks of ``tests/test_torch_oracle.py`` on the card in
+   float64 (first tick and ALM at 1e-8, three MPC ticks and the warm start
+   at 1e-7); ``solve_batch(weights_batched=True)`` in float64 on the
+   yaml-parameter sweep of tests/test_cilqr.py:135-162, each row within
+   1e-9 of a 0-d-weight solve with equal iterations and statuses; the
+   kernel path refusing those weights with a ``ValueError`` and no launch;
+   and the ALM instantiation against its plain version at leg (d)'s first
+   tick (and its resume entry at the cap), for the kernels line.
 
 Cut to stay under eight minutes: the host loop's off/on/on/off compaction
 timing of the main path and path (a) is gone (phase 8 times compaction
@@ -1462,7 +1479,7 @@ def phase_sweep(card, launches_total):
     check(episode_equal, "sweep: run_mpc_chunked_sharded differs from run_mpc_kernel_chunked")
 
 
-def plain_episode(cfg, w, x0, sc, obs_b, rows, modes, ticks):
+def plain_episode(cfg, w, x0, sc, obs_b, rows, modes, ticks, window=384, w_back=24):
     """The same episodes through the plain version on the card, written
     out independently of ``run_mpc_kernel``: each tick solves on the
     prediction window at that tick from the shifted previous controls and,
@@ -1483,7 +1500,7 @@ def plain_episode(cfg, w, x0, sc, obs_b, rows, modes, ticks):
         u_init = (torch.cat([u_prev[:, 1:], u_prev[:, -1:]], dim=1)
                   if warm and u_prev is not None else None)
         mu0, rho0 = duals if warm else (None, None)
-        p = ck.pack_problem(cfg, ego, scenario, 384, u_init, 24, rows, mu0, rho0, modes)
+        p = ck.pack_problem(cfg, ego, scenario, window, u_init, w_back, rows, mu0, rho0, modes)
         r = ck.cilqr_solve_ref(cfg, w, p)
         u_prev = r.u.permute(2, 1, 0)
         ego = r.x[:, 1].T
@@ -2123,6 +2140,280 @@ def phase_demos(card):
         pscan_over_scan=d["pscan_over_scan"])
 
 
+# phase 11: the dry run and the port's surface on the card
+DRYRUN_DEVICES = 1  # one card
+# the yaml-parameter sweep of tests/test_cilqr.py:135-162, float64
+SWEEP_ROWS = dict(w_yaw=(20.0, 5.0, 80.0), stl_lim=(0.12, 0.3, 0.05))
+SWEEP_MAX_ITER = 15
+ROW_ATOL = 1e-9
+DRYRUN_REPS = 20
+# the card's kernel against its plain version on the card, float32, 3
+# iterations a solve: the largest abs difference of u, x, ego and mu on any
+# row and tick. The ALM legs read <= 5.7e-5 (mu of (d), |mu| <= 7.3) on an
+# H100. Leg (b)'s cold barrier solve ends row 0 at a cost near 7.9e3,
+# where float32 rounding moves the result: u 2.0e-3 and the final cost
+# 2.8e-3 relative, the order of the plain version's own float32-to-float64
+# differences (``plain_f32_vs_f64`` in the phase's line: 4.1e-3, 2.5e-3).
+DRYRUN_ALM_ATOL = 5e-4
+DRYRUN_BARRIER_ATOL = 1e-2
+DRYRUN_COST_RTOL = 1e-2  # leg (b)'s final cost, relative
+
+
+def dryrun_records(card_launches):
+    """11: the kernel against its plain version on leg (d)'s first tick
+    (the ALM instantiation, cold, batch of the dry run, the card's modes) and
+    its resume entry at the leg's cap; records for the kernels line."""
+    from ilqr_tpu_torch.apps import dryrun as dr
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    cfg_e, w, x0, sc, _ = dr._problems(dr.ROWS_PER_DEVICE * DRYRUN_DEVICES, DEVICE)["d"]
+    p = ck.pack_problem(cfg_e, x0, sc, dr.WINDOW, modes=ck.resolve_modes(DEVICE))
+    _, _, rec = against_plain(cfg_e, w, p, DRYRUN_REPS)
+    records = [rec]
+    resume = resume_measure(cfg_e, w, p, (dr.STRAGGLER_CAP, cfg_e.max_iter), DRYRUN_REPS)
+    if resume is not None:
+        records.append(resume)
+    check({r["variant"] for r in records} >= {v for v in card_launches if "_alm" in v},
+          f"dry run: ALM kernels launched {sorted(card_launches)} but measured "
+          f"{[r['variant'] for r in records]}")
+    return records
+
+
+def dryrun_against_plain(legs):
+    """11: the card's legs (b)-(d) held to the plain version on the card, on
+    the same inputs in the card's modes: (b) one cold solve; (c) and (d) the
+    warm ALM episodes tick by tick (``plain_episode``), and (d)'s final
+    duals (the same episode through ``run_mpc_kernel_scan``, which returns
+    its carry and must be bitwise leg (d)). Every row of every tick must
+    end at the plain version's iteration and status."""
+    import torch
+    from ilqr_tpu_torch.apps import dryrun as dr
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.sim.mpc import run_mpc_kernel_scan
+
+    P = dr._problems(dr.ROWS_PER_DEVICE * DRYRUN_DEVICES, DEVICE)
+    modes = ck.resolve_modes(DEVICE)
+    out = {}
+    cfg_k, w_k, x0_k, sc_k = P["b"]
+    r = ck.cilqr_solve_ref(cfg_k, w_k, ck.pack_problem(cfg_k, x0_k, sc_k, dr.WINDOW,
+                                                       modes=modes))
+    u, x, stats, _ = legs["b"]
+    cost_r = r.stats[4]
+    out["b"] = dict(
+        rows_iters_status_equal=int(((stats.iters == r.stats[0])
+                                     & (stats.status == r.stats[1])).sum()),
+        rows=int(u.shape[0]),
+        max_abs_err=dict(u=float((u - r.u.permute(2, 1, 0)).abs().max()),
+                         x=float((x - r.x.permute(2, 1, 0)).abs().max())),
+        cost_relerr=float(((stats.final_cost - cost_r).abs()
+                           / cost_r.abs().clamp_min(1e-3)).max()))
+    # the plain version's own float32 rounding at this solve: against its
+    # float64 run on the same problem
+    _, cfg64, w64, x64, sc64 = dr.build_problem(torch.float64, u.shape[0], dr.MAX_ITER, DEVICE,
+                                                horizon=dr.KERNEL_N)
+    r64 = ck.cilqr_solve_ref(cfg64, w64, ck.pack_problem(cfg64, x64, sc64, dr.WINDOW,
+                                                         modes=modes))
+    out["b"]["plain_f32_vs_f64"] = dict(
+        u=float((r.u.double() - r64.u).abs().max()),
+        cost_relerr=float(((cost_r.double() - r64.stats[4]).abs()
+                           / r64.stats[4].abs().clamp_min(1e-3)).max()))
+    for leg, ticks in (("c", dr.EPISODE_TICKS), ("d", dr.CHUNKED_TICKS)):
+        cfg_e, w_e, x0_e, sc_e, obs_e = P[leg]
+        ego_r, u_r, it_r, st_r, (mu_r, rho_r) = plain_episode(
+            cfg_e, w_e, x0_e, sc_e, obs_e, 0, modes, ticks, window=dr.WINDOW, w_back=ck.W_BACK)
+        ego, us, stats = legs[leg]
+        out[leg] = dict(
+            rows_iters_status_equal_every_tick=int(((stats.iters == it_r)
+                                                    & (stats.status == st_r)).all(0).sum()),
+            rows=int(ego.shape[1]), ticks=ticks,
+            max_abs_err=dict(ego=float((ego - ego_r).abs().max()),
+                             u=float((us - u_r).abs().max())))
+        if leg == "d":
+            ego_s, us_s, _, carry = run_mpc_kernel_scan(cfg_e, w_e, x0_e,
+                                                        *dr._episode_rows(sc_e, obs_e), ticks,
+                                                        window=dr.WINDOW, with_carry=True)
+            out[leg].update(
+                scan_bitwise_leg=bool(torch.equal(ego_s, ego) and torch.equal(us_s, us)),
+                mu_max=float(mu_r.max()), rho_max=float(rho_r.max()),
+                rho_init=float(w_e.alm_rho_init),
+                dual_rows_moved=int(((mu_r > 0).flatten(1).any(1)
+                                     | (rho_r > w_e.alm_rho_init)).sum()))
+            out[leg]["max_abs_err"]["mu"] = float((carry[1] - mu_r).abs().max())
+            out[leg]["rho_equal"] = bool(torch.equal(carry[2], rho_r))
+    return out
+
+
+def dryrun_plain_gates(plain, records):
+    """11: the gates of ``dryrun_against_plain`` and ``dryrun_records``."""
+    for leg, rec in plain.items():
+        n_equal = rec.get("rows_iters_status_equal", rec.get("rows_iters_status_equal_every_tick"))
+        tol = DRYRUN_BARRIER_ATOL if leg == "b" else DRYRUN_ALM_ATOL
+        check(n_equal == rec["rows"] and max(rec["max_abs_err"].values()) <= tol,
+              f"dry run leg ({leg}) against the plain version on the card: {rec}")
+    check(plain["b"]["cost_relerr"] <= DRYRUN_COST_RTOL,
+          f"dry run leg (b): final cost against the plain version: {plain['b']}")
+    check(plain["d"]["scan_bitwise_leg"] and plain["d"]["rho_equal"],
+          f"dry run leg (d): duals against the plain version: {plain['d']}")
+    solve, resume = records[0], records[1:]
+    check(bool(solve["same"].all()) and solve["err"] <= DRYRUN_ALM_ATOL,
+          f"dry run: the ALM kernel against its plain version: {solve['errs']}, iterations "
+          f"and statuses equal on {int(solve['same'].sum())}/{solve['same'].numel()} rows")
+    for rec in resume:
+        check(rec["iters_status_equal"] == rec["rows"] and rec["err"] <= DRYRUN_ALM_ATOL,
+              f"dry run: the ALM resume entry against its plain version: {rec['errs']}, "
+              f"iterations and statuses equal on {rec['iters_status_equal']}/{rec['rows']} rows")
+
+
+def weights_sweep_f64():
+    """11: ``solve_batch(weights_batched=True)`` in float64 on the card, each
+    row against a 0-d-weight solve with that row's weights; and the kernel
+    path's refusal of the per-row weights (no launch)."""
+    import torch
+    from ilqr_tpu_torch.config import GlobalConfig
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+    from ilqr_tpu_torch.sim.scenario import build_scenario_setup
+    from ilqr_tpu_torch.solvers.cilqr import solve, solve_batch
+    from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
+    from ilqr_tpu_torch.utils.tree import tree_map
+
+    f64, B = torch.float64, 3
+    gc = GlobalConfig.from_file(str(REPO / "configs" / "scenario_two_straight.yaml"))
+    st = build_scenario_setup(gc)
+    cfg = CILQRConfig.from_global_config(gc, max_iter=SWEEP_MAX_ITER)
+    w = CILQRWeights.from_global_config(gc, f64, DEVICE)
+    w_b = dataclasses.replace(tree_map(lambda a: a.expand(B).clone(), w), **{
+        k: torch.tensor(v, dtype=f64, device=DEVICE) for k, v in SWEEP_ROWS.items()})
+    x0 = torch.as_tensor(st.ego_x0, dtype=f64, device=DEVICE).expand(B, 4).contiguous()
+    sc = st.device_scenario(tick=0, dtype=f64, device=DEVICE, batch=B)
+    (u, x, stats, _), wall = timed_cuda(lambda: solve_batch(cfg, w_b, x0, sc,
+                                                            weights_batched=True))
+    rows = []
+    for i in range(B):
+        w_i = dataclasses.replace(w, **{k: getattr(w_b, k)[i] for k in SWEEP_ROWS})
+        u_i, x_i, s_i, _ = solve(cfg, w_i, x0[i:i + 1], st.device_scenario(
+            tick=0, dtype=f64, device=DEVICE))
+        rows.append(dict(iters=int(stats.iters[i]), single_iters=int(s_i.iters[0]),
+                         status=int(stats.status[i]), single_status=int(s_i.status[0]),
+                         u_err=float((u[i] - u_i[0]).abs().max()),
+                         x_err=float((x[i] - x_i[0]).abs().max())))
+    before = sum(ck.launches.values())
+    refused = None
+    try:
+        ck.cilqr_solve_cuda(cfg, w_b, x0, sc, window=256)
+    except ValueError as err:  # the refusal is the gate
+        refused = str(err)
+    rec = dict(wall_s=wall, rows=rows, kernel_refused=refused,
+               launches_at_refusal=sum(ck.launches.values()) - before)
+    check(all(r["iters"] == r["single_iters"] and r["status"] == r["single_status"]
+              and r["u_err"] <= ROW_ATOL and r["x_err"] <= ROW_ATOL for r in rows),
+          f"per-row weights on the card differ from single solves: {rows}")
+    check(refused is not None and rec["launches_at_refusal"] == 0,
+          f"the kernel path took per-row weights (refused: {refused!r}, "
+          f"launches {rec['launches_at_refusal']})")
+    return rec
+
+
+def repo_tests_module(name):
+    """``tests/<name>.py`` of this checkout, imported as ``tests.<name>``.
+    The machine may have another ``tests`` package installed (a regular
+    package, which would win over this checkout's directory), so the name
+    is bound to this checkout's directory first."""
+    import importlib
+    import types
+
+    pkg = sys.modules.get("tests")
+    if pkg is None or list(getattr(pkg, "__path__", [])) != [str(REPO / "tests")]:
+        pkg = types.ModuleType("tests")
+        pkg.__path__ = [str(REPO / "tests")]
+        sys.modules["tests"] = pkg
+        for key in [k for k in sys.modules if k.startswith("tests.")]:
+            del sys.modules[key]
+    mod = importlib.import_module(f"tests.{name}")
+    check(Path(mod.__file__).resolve().is_relative_to(REPO),
+          f"tests.{name} imported from outside this checkout: {mod.__file__}")
+    return mod
+
+
+def phase_dryrun(card, launches_total):
+    """11: ``apps.dryrun`` on the card: ``entry()``, then
+    ``dryrun_multichip(1)`` with the kernel's counts at 0 (legs (b)-(d)
+    must launch it), each leg bitwise equal to the same call over the whole
+    batch with no mesh (``single_device_legs``); the oracle checks of
+    ``tests/test_torch_oracle.py`` on the card in float64; the per-row
+    weight sweep and the kernel's refusal. Returns the kernel records of
+    the ALM instantiation the dry run launches."""
+    import torch
+    from ilqr_tpu_torch.apps import dryrun as dr
+    from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
+
+    t_phase = time.perf_counter()
+    nvidia_smi = gpu_line()
+    print(nvidia_smi, flush=True)
+    fn, args = dr.entry(DEVICE)
+    (u, _, iters, converged), entry_s = timed_cuda(lambda: fn(*args))
+    entry_rec = dict(wall_s=entry_s, shape=list(u.shape), mean_iters=float(iters.double().mean()),
+                     converged=int(converged.sum()))
+    check(tuple(u.shape) == (8, 30, 2) and bool(torch.isfinite(u).all()),
+          f"entry(): {entry_rec}")
+
+    walls, leg_launches = {}, {}
+    torch.cuda.synchronize()
+    ck.launches.clear()
+    t_leg = [time.perf_counter()]
+
+    def on_leg(leg):
+        now = time.perf_counter()
+        walls[leg] = now - t_leg[0]
+        leg_launches[leg] = dict(ck.launches)
+        t_leg[0] = now
+
+    legs = dr.dryrun_multichip(DRYRUN_DEVICES, DEVICE, on_leg=on_leg)
+    dry_launches = dict(ck.launches)
+    per_leg, prev = {}, {}
+    for leg in "abcd":
+        per_leg[leg] = {k: v - prev.get(k, 0) for k, v in leg_launches[leg].items()
+                        if v - prev.get(k, 0)}
+        prev = leg_launches[leg]
+    single = dr.single_device_legs(dr.ROWS_PER_DEVICE * DRYRUN_DEVICES, DEVICE)
+    bitwise = {leg: all(torch.equal(a, b) for a, b in zip(dr.leg_tensors(legs[leg]),
+                                                            dr.leg_tensors(single[leg])))
+               for leg in "abcd"}
+    oracle_mod = repo_tests_module("test_torch_oracle")
+    oracle = {}
+    for name, check_fn in oracle_mod.CHECKS.items():
+        rec, wall = timed_cuda(lambda: check_fn(DEVICE))
+        oracle[name] = dict(rec, wall_s=wall)
+    sweep = weights_sweep_f64()
+    plain = dryrun_against_plain(legs)
+    records = dryrun_records(dry_launches)
+    launches_total.update(dry_launches)
+    say("phase11_dryrun", card=card, nvidia_smi=nvidia_smi, devices=DRYRUN_DEVICES,
+        entry=entry_rec, leg_walls_s=walls, leg_launches=per_leg, launches=dry_launches,
+        bitwise_single_device=bitwise, against_plain=plain,
+        against_plain_tol=dict(alm_atol=DRYRUN_ALM_ATOL, barrier_atol=DRYRUN_BARRIER_ATOL,
+                               cost_rtol=DRYRUN_COST_RTOL),
+        final_ego_x_mean=float(legs["d"][0][-1, :, 0].mean()),
+        oracle=oracle, oracle_atol=dict(first_tick=oracle_mod.TICK_ATOL,
+                                        alm_mode=oracle_mod.TICK_ATOL,
+                                        mpc_ticks=oracle_mod.MPC_ATOL,
+                                        warm_start=oracle_mod.MPC_ATOL),
+        weights_batched=sweep,
+        alm_kernel=[dict(variant=r["variant"], max_abs_err=r["errs"],
+                         iters_status_equal=int(r["same"].sum()) if "same" in r
+                         else r["iters_status_equal"], kernel_ms=r["ms"],
+                         plain_ms=r["plain_ms"], plain_work=r["work"]) for r in records],
+        phase_s=time.perf_counter() - t_phase)
+    dryrun_plain_gates(plain, records)
+    check(all(bitwise.values()), f"dry run: legs differ from the single-device calls: {bitwise}")
+    check(not per_leg["a"] and all(per_leg[leg] for leg in "bcd"),
+          f"dry run: the kernel must launch in legs (b)-(d) and not in (a): {per_leg}")
+    check(any("_barrier" in v for v in per_leg["b"])
+          and all(any("_alm" in v for v in per_leg[leg]) for leg in "cd"),
+          f"dry run: (b) must launch the barrier instantiation, (c) and (d) the ALM one: "
+          f"{per_leg}")
+    return records
+
+
 def main():
     import torch
     from ilqr_tpu_torch.apps import validate_kernel as vk
@@ -2146,6 +2437,7 @@ def main():
     for case in EPISODES_F64:
         launches.update(phase_episode_f64(case))
     phase_demos(card)
+    records += phase_dryrun(card, launches)
     # one entry per kernel the paths launched: its time on its first
     # record's inputs, its error the largest of its records'
     measured = {}

@@ -113,7 +113,9 @@ def front_rear_centers(state, wheelbase, ref_point: str = GRAVITY_CENTER):
     """
     pos = state[..., :2]
     yaw = state[..., 3]
-    whba = wheelbase * torch.stack([torch.cos(yaw), torch.sin(yaw)], dim=-1)
+    # the wheelbase scales each coordinate before the stack, so a per-row
+    # wheelbase shaped like ``yaw`` broadcasts
+    whba = torch.stack([wheelbase * torch.cos(yaw), wheelbase * torch.sin(yaw)], dim=-1)
     if ref_point == REAR_CENTER:
         return pos + whba, pos
     return pos + 0.5 * whba, pos - 0.5 * whba

@@ -117,6 +117,12 @@ def exp_barrier_coeffs(c, q1, q2, exp_clip=None):
     return b, q2 * b, q2 * q2 * b
 
 
+def alm_item(c, rho, mu):
+    """rho/2 * max(c + mu/rho, 0)^2."""
+    act = torch.clamp_min(c + mu / rho, 0.0)
+    return 0.5 * rho * act**2
+
+
 def alm_coeffs(c, rho, mu):
     """(value, gamma, eta) with gamma = eta = rho*(c + mu/rho) when active
     (the reference's rank-1 Hessian, src/cilqr_solver.cpp:707-709)."""

@@ -12,6 +12,9 @@ reference's ALM dual layout (src/cilqr_solver.cpp:622-676):
 search to the first rows of ``scenario.ref_line``, and ``modes`` picks the
 fused solve's projection mode (``Modes``, see ops/projection.py);
 ``cfg.projection`` ("exact" or "hier") the search itself.
+
+A weight of ``w`` may be 0-d or (B,), one value per row (``types.per_row``,
+``types.stack_last``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from ilqr_tpu_torch.ops import constraints as C
 from ilqr_tpu_torch.ops.projection import Modes, nearest_ref_points
-from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights
+from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, per_row, stack_last
 
 
 class CostDerivatives(NamedTuple):
@@ -49,25 +52,26 @@ def _constraint_values(cfg: CILQRConfig, w: CILQRWeights, u, x, ref_pts, scenari
     xk = x[:, 1:]
     rk = ref_pts[:, 1:]
     rb = scenario.road_borders.to(x.dtype)
+    stl_lim = per_row(w.stl_lim, 2)
     c_u = torch.stack([
-        C.upper_bound_constr(u[..., 0], w.acc_max),
-        C.lower_bound_constr(u[..., 0], w.acc_min),
-        C.upper_bound_constr(u[..., 1], w.stl_lim),
-        C.lower_bound_constr(u[..., 1], -w.stl_lim),
+        C.upper_bound_constr(u[..., 0], per_row(w.acc_max, 2)),
+        C.lower_bound_constr(u[..., 0], per_row(w.acc_min, 2)),
+        C.upper_bound_constr(u[..., 1], stl_lim),
+        C.lower_bound_constr(u[..., 1], -stl_lim),
     ], dim=-1)
     cur_d, _ = C.lateral_offset(xk, rk)
+    width = per_row(w.width, 2)
     c_x = torch.stack([
-        C.upper_bound_constr(xk[..., 2], w.velo_max),
-        C.lower_bound_constr(xk[..., 2], w.velo_min),
-        C.upper_bound_constr(cur_d, rb[:, 0:1] - w.width / 2),
-        C.lower_bound_constr(cur_d, rb[:, 1:2] + w.width / 2),
+        C.upper_bound_constr(xk[..., 2], per_row(w.velo_max, 2)),
+        C.lower_bound_constr(xk[..., 2], per_row(w.velo_min, 2)),
+        C.upper_bound_constr(cur_d, rb[:, 0:1] - width / 2),
+        C.lower_bound_constr(cur_d, rb[:, 1:2] + width / 2),
     ], dim=-1)
     B, N = u.shape[0], cfg.N
     if cfg.num_obstacles > 0:
         obs_k = scenario.obs_preds[:, :, 1:, :].to(x.dtype)  # (B, M, N, 3)
         front, rear = C.obstacle_avoidance_constr(
-            xk[:, None], obs_k, w.wheelbase, w.width, w.length, w.d_safe,
-            cfg.reference_point)  # each (B, M, N)
+            xk[:, None], obs_k, *_obstacle_weights(w), cfg.reference_point)  # each (B, M, N)
         # interleave -> (B, N, 2M): col 2j front_j, 2j+1 rear_j
         c_obs = torch.stack([front, rear], dim=-1).permute(0, 2, 1, 3)
         c_obs = c_obs.reshape(B, N, 2 * cfg.num_obstacles)
@@ -76,20 +80,32 @@ def _constraint_values(cfg: CILQRConfig, w: CILQRWeights, u, x, ref_pts, scenari
     return c_u, c_x, c_obs
 
 
+def _obstacle_weights(w: CILQRWeights):
+    """(wheelbase, width, length, d_safe) as factors of the (B, M, N) obstacle
+    terms."""
+    return tuple(per_row(t, 3) for t in (w.wheelbase, w.width, w.length, w.d_safe))
+
+
+def _columns(state_q, obstacle_q, M: int):
+    """A barrier weight per constraint column, as a factor of the (B, N, C)
+    constraint values: (1, C), or (B, 1, C) when either weight is per row."""
+    return stack_last([state_q] * 8 + [obstacle_q] * (2 * M)).unsqueeze(-2)
+
+
 def _penalty_coeffs(cfg: CILQRConfig, w: CILQRWeights, c_all, alm_rho, alm_mu):
     """(value, gamma, eta) each (B, N, C) for the active penalty family."""
     if cfg.solve_type == "alm":
         return C.alm_coeffs(c_all, alm_rho[:, None, None], alm_mu)
     M = cfg.num_obstacles
-    q1 = torch.cat([w.state_exp_q1.expand(8), w.obstacle_exp_q1.expand(2 * M)])
-    q2 = torch.cat([w.state_exp_q2.expand(8), w.obstacle_exp_q2.expand(2 * M)])
-    return C.exp_barrier_coeffs(c_all, q1, q2, w.exp_clip)
+    q1 = _columns(w.state_exp_q1, w.obstacle_exp_q1, M)
+    q2 = _columns(w.state_exp_q2, w.obstacle_exp_q2, M)
+    return C.exp_barrier_coeffs(c_all, q1, q2, per_row(w.exp_clip, 3))
 
 
 def _prime_cost(w: CILQRWeights, u, x, ref_states):
     dxs = x - ref_states
-    return ((dxs * dxs * w.state_weight_diag).sum(dim=(1, 2))
-            + (u * u * w.ctrl_weight_diag).sum(dim=(1, 2)))
+    sdiag, cdiag = w.state_weight_diag.unsqueeze(-2), w.ctrl_weight_diag.unsqueeze(-2)
+    return (dxs * dxs * sdiag).sum(dim=(1, 2)) + (u * u * cdiag).sum(dim=(1, 2))
 
 
 def total_cost(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
@@ -115,11 +131,12 @@ def cost_and_derivatives(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
     rk = ref_pts[:, 1:]
 
     # prime-objective terms (src/cilqr_solver.cpp:491-494)
-    sdiag, cdiag = w.state_weight_diag, w.ctrl_weight_diag
+    # each diagonal (K,) or per row (B, K), as (1, K) or (B, 1, K)
+    sdiag, cdiag = w.state_weight_diag.unsqueeze(-2), w.ctrl_weight_diag.unsqueeze(-2)
     l_u_prime = 2.0 * u * cdiag
     l_x_prime = 2.0 * (x - ref_states) * sdiag
-    l_uu_prime = torch.diag(2.0 * cdiag).expand(B, N, 2, 2)
-    l_xx_prime = torch.diag(2.0 * sdiag).expand(B, N + 1, 4, 4)
+    l_uu_prime = torch.diag_embed(2.0 * cdiag).expand(B, N, 2, 2)
+    l_xx_prime = torch.diag_embed(2.0 * sdiag).expand(B, N + 1, 4, 4)
 
     c_u, c_x, c_obs = _constraint_values(cfg, w, u, x, ref_pts, scenario)
     c_all = torch.cat([c_u, c_x, c_obs], dim=-1)
@@ -134,8 +151,7 @@ def cost_and_derivatives(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
     if M > 0:
         obs_k = scenario.obs_preds[:, :, 1:, :].to(x.dtype)
         gf, gr = C.obstacle_avoidance_constr_grads(
-            xk[:, None], obs_k, w.wheelbase, w.width, w.length, w.d_safe,
-            cfg.reference_point)  # each (B, M, N, 4)
+            xk[:, None], obs_k, *_obstacle_weights(w), cfg.reference_point)  # each (B, M, N, 4)
         g_obs = torch.stack([gf, gr], dim=-2).permute(0, 2, 1, 3, 4)  # (B,N,M,2,4)
         g_x = torch.cat([torch.stack(g_x, dim=2), g_obs.reshape(B, N, 2 * M, 4)], dim=2)
     else:
@@ -159,9 +175,17 @@ def cost_and_derivatives(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
     l_uu = l_uu_prime + l_uu_barrier
 
     if cfg.solve_type == "alm":
-        mu_next = C.alm_mu_next(c_all, alm_rho[:, None, None], alm_mu, w.max_mu)
+        mu_next = C.alm_mu_next(c_all, alm_rho[:, None, None], alm_mu, per_row(w.max_mu, 3))
     else:
         mu_next = x.new_zeros((B, N, cfg.num_constraints))
 
     J = _prime_cost(w, u, x, ref_states) + value.sum(dim=(1, 2))
     return J, CostDerivatives(l_x, l_u, l_xx, l_uu, mu_next)
+
+
+def cost_derivatives(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
+                     alm_rho=None, alm_mu=None, row_limits=None,
+                     modes: Modes = Modes()) -> CostDerivatives:
+    """l_x, l_u, l_xx, l_uu (+ ALM dual precompute): the derivatives of
+    :func:`cost_and_derivatives`."""
+    return cost_and_derivatives(cfg, w, u, x, scenario, alm_rho, alm_mu, row_limits, modes)[1]

@@ -86,6 +86,10 @@ entry unchanged; bitwise the same result.
 The weights (``host_weights``), the row-limit array and the launch plan
 reach the host once, not per launch, so a launch makes no device-to-host
 copy and a CUDA graph can capture it.
+The kernel reads one set of weights a launch, as the Pallas kernel did:
+per-row weights (the eager solver's ``solve_batch(weights_batched=True)``)
+are refused with a ``ValueError`` (``check_scalar_weights``), by the plain
+version too.
 
 The kernel is built at first use with nvcc into ``ilqr_tpu_torch/_build/``
 (a shared library with a plain C interface, loaded with ctypes), under a
@@ -235,6 +239,17 @@ def variant(cfg: CILQRConfig, dtype: torch.dtype, modes: Modes = Modes()) -> str
     return f"cilqr_solve_{dt}_{('rear', 'gravity')[gravity]}_{_PENALTIES[alm]}{suffix}"
 
 
+def check_scalar_weights(w: CILQRWeights) -> None:
+    """Raise unless every weight is 0-d: the kernel reads one set of weights
+    a launch (struct Weights), as the Pallas kernel does, so per-row
+    weights run on the eager solver only."""
+    shapes = w.row_shapes
+    if shapes != {()}:
+        raise ValueError(f"the fused kernel takes one set of weights a launch (0-d tensors); "
+                         f"got weight shapes {sorted(shapes)}: solve per-row weights with "
+                         f"solvers.cilqr.solve_batch(weights_batched=True)")
+
+
 def host_weights(w: CILQRWeights, dtype: torch.dtype):
     """The weights the kernel reads (``_WEIGHT_ORDER``, struct Weights in
     the .cu source) as a ctypes array of ``dtype``, and every field of
@@ -251,6 +266,7 @@ def host_weights(w: CILQRWeights, dtype: torch.dtype):
     key = tuple((id(t), t._version) for t in tensors)
     entry = _host_weights.get(key)
     if entry is None:
+        check_scalar_weights(w)
         values = dict(zip(names, torch.stack(tensors).tolist()))
         entry = (tensors, values, {})
         _host_weights[key] = entry
@@ -471,6 +487,7 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     ``solve_from_controls``). The kernel runs the sequential Riccati pass
     and its own windowed projection whatever ``cfg.riccati_impl`` and
     ``cfg.projection`` say, as the Pallas kernel does, and so does this."""
+    check_scalar_weights(w)
     cfg = dataclasses.replace(cfg, riccati_impl="scan", projection="exact")
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
     win = torch.stack([p.rx, p.ry, p.ryaw, torch.zeros_like(p.rx)], dim=-1)  # (W,B,4)

@@ -13,7 +13,8 @@ line search and its acceptance rule, warm starting and the
 - lambda reacts only to {BACKWARD,FORWARD}_PASS_FAIL and RUNNING;
   SMALL_STEP and CONVERGED leave it unchanged (:118-125).
 
-Every tensor carries a leading scenario axis B. Per-row control flow is
+Every tensor carries a leading scenario axis B, and any weight may be a (B,)
+tensor of per-row values (``solve_batch(weights_batched=True)``). Per-row control flow is
 masked: an iteration runs while any row is active, and a row's state only
 changes while it is. The line search walks the alphas serially, stopping
 each row at its first hit and the loop when every row has stopped -- the
@@ -51,6 +52,7 @@ from ilqr_tpu_torch.types import (
     SolveStatus,
     entry_device,
     numpy_dtype,
+    per_row,
 )
 from ilqr_tpu_torch.utils.refline import ReferenceLine, RoutingLine
 
@@ -62,6 +64,7 @@ __all__ = [
     "ResumeState",
     "SolveStatus",
     "solve",
+    "solve_batch",
     "solve_from_controls",
 ]
 
@@ -98,7 +101,8 @@ def _forward_chunk(cfg, w, u, x, d, K, alphas):
     def rep(t):
         return t.repeat(cw, *(1,) * (t.dim() - 1))
 
-    nu, nx = forward_pass(rep(u), rep(x), rep(d), rep(K), al, w.dt, w.wheelbase,
+    dt, wheelbase = (t if t.dim() == 0 else rep(t) for t in (w.dt, w.wheelbase))
+    nu, nx = forward_pass(rep(u), rep(x), rep(d), rep(K), al, dt, wheelbase,
                           cfg.reference_point)
     return nu.view(cw, *u.shape), nx.view(cw, *x.shape)
 
@@ -236,7 +240,8 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
         # the iteration's cost (== ori_cost of src/cilqr_solver.cpp:342) and
         # its derivatives from one pass
         ori_cost, der = cost_and_derivatives(cfg, w, u, x, scenario, rho, mu, row_limits, modes)
-        A, Bm = kinematic_jacobians(x[:, :-1], u, w.dt, w.wheelbase, cfg.reference_point)
+        A, Bm = kinematic_jacobians(x[:, :-1], u, per_row(w.dt, 2), per_row(w.wheelbase, 2),
+                                    cfg.reference_point)
         if cfg.riccati_impl == "pscan":
             bw = parallel_lqr_backward(A, Bm, der.l_x, der.l_u, der.l_xx, der.l_uu, lamb=lamb)
         else:
@@ -322,6 +327,22 @@ def solve(cfg: CILQRConfig, w: CILQRWeights, x0, scenario: Scenario,
     new_carry = CILQRCarry(last_u=u, is_first=torch.zeros_like(first), alm_rho=rho,
                            alm_mu=mu)
     return u, x, stats, new_carry
+
+
+def solve_batch(cfg: CILQRConfig, w: CILQRWeights, x0, scenario: Scenario,
+                carry: Optional[CILQRCarry] = None, weights_batched: bool = False):
+    """:func:`solve` over the leading batch axis of x0 / scenario / carry,
+    as ``ilqr_tpu.solvers.cilqr.solve_batch`` vmaps it, with every weight a
+    scalar, or with ``weights_batched`` every weight a (B,) tensor of
+    per-row values (yaml-parameter sweeps). Per-row weights run on this
+    eager solver only: the fused kernel reads one set of weights a launch
+    and refuses them."""
+    shapes = w.row_shapes
+    want = {(x0.shape[0],)} if weights_batched else {()}
+    if shapes != want:
+        raise ValueError(f"weights_batched={weights_batched} needs every weight of shape "
+                         f"{next(iter(want))}; got shapes {sorted(shapes)}")
+    return solve(cfg, w, x0, scenario, carry)
 
 
 class CILQRSolver:

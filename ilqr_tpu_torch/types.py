@@ -7,7 +7,10 @@ per scenario:
 
 - ``CILQRConfig``: static hyperparameters (shapes, modes), hashable;
 - ``CILQRWeights``: solver scalars as 0-d tensors of the working dtype, so
-  ``x * w.dt`` is an op in that dtype on that device.
+  ``x * w.dt`` is an op in that dtype on that device. Any of them may
+  instead be a (B,) tensor, one value per scenario row (the JAX package's
+  ``vmap`` over a batch of weights): the eager path reads each weight
+  through ``per_row`` and ``stack_last``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import numpy as np
 import torch
 
 from ilqr_tpu_torch.config import GlobalConfig
-from ilqr_tpu_torch.ops.constraints import default_exp_clip
 
 
 def numpy_dtype(dtype: torch.dtype):
@@ -35,6 +37,20 @@ def entry_device(device) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but no CUDA device is available; "
                            "pass device='cpu' (--device cpu) to run on the CPU")
     return dev
+
+
+def per_row(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A weight as a factor of a tensor of ``ndim`` dimensions whose leading
+    axis is the scenario batch: a 0-d weight unchanged, a (B,) weight viewed
+    as (B, 1, ..., 1)."""
+    return t if t.dim() == 0 else t.reshape(t.shape[:1] + (1,) * (ndim - 1))
+
+
+def stack_last(ts):
+    """Scalars and (B,) tensors stacked on a new last axis: (K,) when all
+    are 0-d, else (B, K)."""
+    lead = torch.broadcast_shapes(*(t.shape for t in ts))
+    return torch.stack([t.expand(lead) for t in ts], dim=-1)
 
 
 class SolveStatus:
@@ -133,8 +149,8 @@ _WEIGHT_KEYS = {
 
 @dataclasses.dataclass
 class CILQRWeights:
-    """Solver scalars, each a 0-d tensor (field-for-field
-    ``ilqr_tpu.types.CILQRWeights``)."""
+    """Solver scalars, each a 0-d tensor or a (B,) tensor of per-row values
+    (field-for-field ``ilqr_tpu.types.CILQRWeights``)."""
 
     dt: torch.Tensor
     w_pos: torch.Tensor
@@ -174,18 +190,31 @@ class CILQRWeights:
         return self.dt.dtype
 
     @property
+    def row_shapes(self) -> set:
+        """The shapes of the fields: {()} when every weight is a scalar."""
+        return {tuple(getattr(self, f.name).shape) for f in dataclasses.fields(self)}
+
+    @property
     def state_weight_diag(self) -> torch.Tensor:
-        return torch.stack([self.w_pos, self.w_pos, self.w_vel, self.w_yaw])
+        """(4,), or (B, 4) when a state weight is per row."""
+        return stack_last([self.w_pos, self.w_pos, self.w_vel, self.w_yaw])
 
     @property
     def ctrl_weight_diag(self) -> torch.Tensor:
-        return torch.stack([self.w_acc, self.w_stl])
+        """(2,), or (B, 2) when a control weight is per row."""
+        return stack_last([self.w_acc, self.w_stl])
 
     @classmethod
     def from_numpy(cls, d: dict, dtype=torch.float32, device="cpu") -> "CILQRWeights":
-        """From ``{field: np.ndarray}``; ``exp_clip`` defaults per dtype."""
-        kw = {f.name: torch.tensor(float(np.asarray(d[f.name])), dtype=dtype, device=device)
-              for f in dataclasses.fields(cls) if f.name in d}
+        """From ``{field: np.ndarray}`` (0-d, or (B,) for per-row weights);
+        ``exp_clip`` defaults per dtype."""
+        from ilqr_tpu_torch.ops.constraints import default_exp_clip
+
+        def t(a):
+            a = np.asarray(a)
+            return torch.tensor(float(a) if a.ndim == 0 else a, dtype=dtype, device=device)
+
+        kw = {f.name: t(d[f.name]) for f in dataclasses.fields(cls) if f.name in d}
         kw.setdefault("exp_clip", torch.tensor(default_exp_clip(dtype), dtype=dtype,
                                                device=device))
         return cls(**kw)

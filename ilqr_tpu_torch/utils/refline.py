@@ -19,6 +19,12 @@ import numpy as np
 
 from ilqr_tpu_torch.utils.splines import CubicSpline2D
 
+# Coordinate of the rows that pad a line: far enough that they never win a
+# nearest-point argmin and never activate obstacle constraints, while
+# (coord**2)**2 stays finite in float32.
+PAD_COORD = 1.0e6
+
+
 class ReferenceLine:
     """Dense offset lane line sampled every ``accuracy`` metres."""
 
@@ -69,9 +75,15 @@ class ReferenceLine:
         ly = py + self.delta_d * np.cos(lyaw)
         return np.stack([lx, ly, lyaw], axis=-1)
 
-    def as_array(self, dtype=np.float64) -> np.ndarray:
-        """(P, 4) array of [x, y, yaw, s]."""
-        return np.stack([self.x, self.y, self.yaw, self.longitude], axis=-1).astype(dtype)
+    def as_array(self, pad_to: int | None = None, dtype=np.float64) -> np.ndarray:
+        """(P, 4) array of [x, y, yaw, s], padded to ``pad_to`` rows with
+        x = y = PAD_COORD and yaw = s = 0."""
+        arr = np.stack([self.x, self.y, self.yaw, self.longitude], axis=-1).astype(dtype)
+        if pad_to is not None and pad_to > arr.shape[0]:
+            pad = np.zeros((pad_to - arr.shape[0], 4), dtype=dtype)
+            pad[:, :2] = PAD_COORD
+            arr = np.concatenate([arr, pad], axis=0)
+        return arr
 
 
 class RoutingLine:

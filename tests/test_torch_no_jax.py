@@ -2,9 +2,11 @@
 nothing of it needs matplotlib to import.
 
 A fresh interpreter in which importing ``jax``, ``flax``, ``ilqr_tpu`` or
-``matplotlib`` raises imports every module of ``ilqr_tpu_torch`` and the
-chip smoke script (the renderer and the apps import matplotlib only when
-they draw, so the port runs where it is not installed).
+``matplotlib`` raises imports every module of ``ilqr_tpu_torch``, the
+chip smoke script and the oracle checks it runs on the card
+(``tests/test_torch_oracle.py``). The renderer and the apps import
+matplotlib only when they draw, so the port runs where it is not
+installed.
 """
 
 import os
@@ -22,6 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(ilqr_tpu_torch.__path__, "ilqr_tp
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+chip_smoke.repo_tests_module("test_torch_oracle")  # the oracle checks it runs on the card
 print(len(names))
 """
 

@@ -42,9 +42,9 @@ def test_hier_matches_exact_and_jax(name, rng):
 
 
 def test_padded_rows_never_win(rng):
-    _, jst, _, _ = load_both("scenario_two_straight")
-    padded = jst.center_lines[0].as_array(pad_to=4096)  # PAD_COORD rows past the line
-    n = len(jst.center_lines[0].x)
+    _, _, _, pst = load_both("scenario_two_straight")
+    padded = pst.center_lines[0].as_array(pad_to=4096)  # PAD_COORD rows past the line
+    n = len(pst.center_lines[0].x)
     assert (4096 - 1) // HIER_STRIDE * HIER_STRIDE >= n  # coarse rows land in the padding
     pos = torch.tensor([[[1000.0, 0.0], [0.0, 0.0], [-50.0, 3.0], [210.0, 0.5]]],
                        dtype=torch.float64)

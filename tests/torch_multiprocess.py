@@ -2,11 +2,14 @@
 
 Imports only the port, so a rank starts without JAX:
 
-    python tests/torch_multiprocess.py RANK STORE_FILE
+    python tests/torch_multiprocess.py RANK STORE_FILE [OUT_FILE]
 
 joins a two-rank gloo group through the file rendezvous ``STORE_FILE``,
 solves its half of ``problem``'s rows with both engines, and prints
-``RESULT {"eager": summary, "kernel": summary}``.
+``RESULT {"eager": summary, "kernel": summary}``. Given ``OUT_FILE``, it
+runs the dry run instead (``apps.dryrun.dryrun_multichip(1, "cpu")``, its
+two rows of the four) and saves each leg's tensors there
+(``torch.save``: {leg: [tensors]}, and the summaries of legs a and b).
 """
 
 import dataclasses
@@ -53,11 +56,25 @@ def summaries(mesh, cfg, w, x0, sc):
     return out
 
 
-def main(rank, store):
+def dryrun(out_file):
+    """This rank's dry run, saved to ``out_file``."""
+    from ilqr_tpu_torch.apps import dryrun as dr
+
+    out = dr.dryrun_multichip(1, "cpu")
+    torch.save({"legs": {k: dr.leg_tensors(v) for k, v in out.items()},
+                "summaries": {k: {n: float(t) for n, t in out[k][3].items()} for k in "ab"}},
+               out_file)
+
+
+def main(rank, store, out_file=None):
     from ilqr_tpu_torch.parallel.mesh import initialize_distributed
     from ilqr_tpu_torch.parallel.sharding import shard_batch_multihost
 
     initialize_distributed(f"file://{store}", num_processes=2, process_id=rank)
+    if out_file is not None:
+        dryrun(out_file)
+        torch.distributed.destroy_process_group()
+        return
     mesh = make_mesh()
     assert (mesh.world_size, mesh.rank, mesh.global_size) == (2, rank, 2)
     cfg, w, x0, sc = problem(4)
@@ -69,4 +86,4 @@ def main(rank, store):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), sys.argv[2])
+    main(int(sys.argv[1]), *sys.argv[2:4])
