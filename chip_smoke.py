@@ -413,7 +413,7 @@ def bound(cfg, dtype, shape, work):
 
 
 def shape_of(cfg, p):
-    return dict(B=p.x0.shape[1], N=cfg.N, M=p.ox.shape[0], W=p.rx.shape[0],
+    return dict(B=p.x0.shape[1], N=cfg.N, M=p.ox.shape[0], W=p.window,
                 row_limits=list(p.row_limits), modes=p.modes)
 
 

@@ -32,7 +32,12 @@
 // per-step derivatives, the chunk's trials, the obstacle predictions (with
 // the cosine and sine of their yaw, computed once per solve) and the
 // searched window rows, staged once per solve; the lanes of a scan read
-// one broadcast address per row. Control flow is uniform across the warp
+// one broadcast address per row. The window is the kernel's own: each solve
+// finds the line row nearest its start (`nearest_row`, torch.argmin's
+// first minimum of the squared distance over all P rows, the lanes
+// striding over them), starts `w_back` rows behind it and stages the
+// searched rows straight from the line (`stage_window`), which the batch
+// shares as one (3, P) array or holds per row as (3, P, B). Control flow is uniform across the warp
 // outside the per-lane and per-chain sections, so no block or warp ever
 // waits on another. One warp a block: a finished scenario hands its slot
 // to the next at once (faster than 2 or 4 a block, and the staged window
@@ -46,8 +51,9 @@
 // and shared bytes, and the tick waits for its slowest scenario. Bytes are
 // not the limit: each scenario reads its inputs once.
 //
-// Layout: every input and output array is scenario-fastest ([row][B]), as
-// the plain version packs them. See ilqr_tpu_torch/ops/cuda/cilqr_kernel.py
+// Layout: every input and output array with a batch axis is
+// scenario-fastest ([row][B]), as the plain version packs them; a line the
+// batch shares has none. See ilqr_tpu_torch/ops/cuda/cilqr_kernel.py
 // for the packing, the launch plan (the grid, and the shared bytes this
 // file's `warp_floats` counts) and the plain PyTorch version of the same
 // function.
@@ -78,9 +84,10 @@
 //   5e-6 with the squared distance, on the card).
 //
 // The modes on this card:
-// - dot form: the wrapper computes the three window terms once per launch as
-//   (W, B) arrays (p_cr, p_nx, p_ny), staged like the squared distance's
-//   two; a row costs 3 shared loads, 2 products and 2 sums;
+// - dot form: the staging computes the three window terms (p_cr, p_nx,
+//   p_ny) of each searched row, rounded op by op as ops/projection.py's
+//   `dot_terms` rounds them, in place of the squared distance's two; a row
+//   costs 3 shared loads, 2 products and 2 sums;
 // - fold: each lane's tournament keeps ceil(R/2) scores and row indices in a
 //   (slot, step, scenario) global scratch the wrapper allocates;
 // - chunked line search: chain a in lane a, trials judged in alpha order by
@@ -123,23 +130,22 @@ template <typename T>
 struct Problem {
   const T* __restrict__ x0;     // (8, B): x, y, v, yaw, rb_hi, rb_lo, ref_velo, 0
   const T* __restrict__ uinit;  // (2, N, B)
-  const T* __restrict__ rx;     // (W, B) reference-line window
-  const T* __restrict__ ry;
-  const T* __restrict__ ryaw;
+  // the reference line's x, y, yaw: (3, P) shared by the batch (batch
+  // stride line_bs 0, row stride line_rs 1) or (3, P, B) per row (1 and B)
+  const T* __restrict__ line;
   const T* __restrict__ ox;     // (M, N+1, B) obstacle predictions
   const T* __restrict__ oy;
   const T* __restrict__ oyaw;
   T* __restrict__ u_out;        // (2, N, B)
   T* __restrict__ x_out;        // (4, N+1, B)
   T* __restrict__ stats_out;    // (6, B)
-  // dot form (proj_dot): window terms (W, B) centred on window row 0,
-  // p_cr = |r - r0|^2, p_nx = -2 (rx - r0x), p_ny = -2 (ry - r0y)
-  const T* __restrict__ pcr;
-  const T* __restrict__ pnx;
-  const T* __restrict__ pny;
   T* __restrict__ fold_s;       // (ceil(R / 2), N+1, B) fold scratch (proj_fold)
   int* __restrict__ fold_i;
+  // (1 + F R, B), F = window_fields(proj_dot), or null: each solve's window
+  // start and its staged rows, read back for tests
+  T* __restrict__ window_out;
   int B, N, M, W, R, max_iter, n_alphas;  // R: the largest row limit, rows staged
+  int P, w_back, line_bs, line_rs;        // line rows; window rows behind the nearest
   int proj_dot, proj_fold, ls_chunk;      // ls_chunk: the chunk width, 0 (serial) to kMaxChunk
 };
 
@@ -228,9 +234,18 @@ struct Ctx : AlmState<T, kAlm> {
   Problem<T> p;
   T* sm;  // the warp's region (`warp_floats`)
   int b, N, M, S, k, lim;
+  int start;  // the line row of window row 0
   T up_bound, lo_bound, ref_velo, ell_a2, ell_b2, q0x, q0y;
 
   __device__ T at(const T* a, int row) const { return a[(size_t)row * p.B + b]; }
+
+  // Field f (0 x, 1 y, 2 yaw) of line row `row`, and of window row r: line
+  // row min(start + r, P - 1), so the window's tail repeats the last row.
+  // Through the strides, not a branch on the layout: K1 ran ~2% faster.
+  __device__ T line_row(int f, int row) const {
+    return p.line[((size_t)f * p.P + row) * p.line_rs + (size_t)b * p.line_bs];
+  }
+  __device__ T window_row(int f, int r) const { return line_row(f, min(start + r, p.P - 1)); }
 
   // The region's arrays, in its order. Step arrays are indexed [f * S + k]
   // (S = N + 1); the trials [(a * kTrialFields + f) * S + k]; the
@@ -501,9 +516,99 @@ __device__ void project(const Ctx<T, G, A>& c, Step<T>& s) {
     bi = p.proj_dot ? first_min<true>(c, s.px - c.q0x, s.py - c.q0y, c.lim)
                     : first_min<false>(c, s.px, s.py, c.lim);
   }
-  s.rx = c.at(p.rx, bi);
-  s.ry = c.at(p.ry, bi);
-  s.rh = c.at(p.ryaw, bi);
+  s.rx = c.window_row(0, bi);
+  s.ry = c.window_row(1, bi);
+  s.rh = c.window_row(2, bi);
+}
+
+// Whether (s, r) comes before (best, bi) in torch.argmin's order as it
+// runs on the card: a NaN is the minimum, equal scores and two NaNs go to
+// the lower row; r < 0 is no row, after every row.
+template <typename T>
+__device__ __forceinline__ bool precedes(T s, int r, T best, int bi) {
+  if (r < 0) return false;
+  if (bi < 0) return true;
+  if (s != s) return best == best || r < bi;
+  if (best != best) return false;
+  return s < best || (s == best && r < bi);
+}
+
+// Rows a lane of the nearest-row search scores before it compares them, so
+// that their loads are in flight together (one row at a time, K1 ran ~0.5%
+// slower at the cells' cold shapes).
+constexpr int kSearchBatch = 8;
+
+// The first minimum over all P line rows of the squared distance to (ex,
+// ey), rounded as the PyTorch version rounds it ((lx - ex)^2 + (ly - ey)^2,
+// each operation on its own), in every lane: lane i keeps its first
+// minimum of rows i, i + 32, ..., and a shuffle tree merges the lanes'.
+template <typename T, bool G, bool A>
+__device__ int nearest_row(const Ctx<T, G, A>& c, T ex, T ey) {
+  const int P = c.p.P;
+  T best = T(0);
+  int bi = -1;
+  for (int r0 = c.k; r0 < P; r0 += kSearchBatch * kWarp) {
+    T s[kSearchBatch];
+#pragma unroll
+    for (int u = 0; u < kSearchBatch; ++u) {  // rows past P - 1 read row P - 1
+      const int r = min(r0 + u * kWarp, P - 1);
+      const T dx = c.line_row(0, r) - ex, dy = c.line_row(1, r) - ey;
+      s[u] = add_rn(mul_rn(dx, dx), mul_rn(dy, dy));
+    }
+#pragma unroll
+    for (int u = 0; u < kSearchBatch; ++u) {  // and are not compared
+      const int r = r0 + u * kWarp;
+      if (r < P && precedes(s[u], r, best, bi)) {
+        best = s[u];
+        bi = r;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    const T s = __shfl_down_sync(kFull, best, off);
+    const int r = __shfl_down_sync(kFull, bi, off);
+    if (precedes(s, r, best, bi)) {
+      best = s;
+      bi = r;
+    }
+  }
+  return __shfl_sync(kFull, bi, 0);
+}
+
+// The solve's window, from its start (x0[0], x0[1]): window row 0 is line
+// row max(nearest - w_back, 0) (not clamped to P - W), and the R searched
+// rows are staged into the region -- x and y, or the dot form's terms
+// centred on window row 0 (p_cr = |r - r0|^2, p_nx = -2 (rx - r0x), p_ny =
+// -2 (ry - r0y)), rounded op by op as ops/projection.py's `dot_terms`.
+// With `window_out`, the start and the staged rows are written back.
+template <typename T, bool G, bool A>
+__device__ void stage_window(Ctx<T, G, A>& c) {
+  const Problem<T>& p = c.p;
+  c.start = max(nearest_row(c, c.at(p.x0, 0), c.at(p.x0, 1)) - p.w_back, 0);
+  // the dot form's query is centred on window row 0
+  c.q0x = p.proj_dot ? c.window_row(0, 0) : T(0);
+  c.q0y = p.proj_dot ? c.window_row(1, 0) : T(0);
+  const int R = p.R, F = window_fields(p.proj_dot);
+  T* win = c.win();
+  for (int r = c.k; r < R; r += kWarp) {
+    const T x = c.window_row(0, r), y = c.window_row(1, r);
+    if (p.proj_dot) {
+      const T xc = x - c.q0x, yc = y - c.q0y;
+      win[r] = add_rn(mul_rn(xc, xc), mul_rn(yc, yc));
+      win[R + r] = T(-2) * xc;
+      win[2 * R + r] = T(-2) * yc;
+    } else {
+      win[r] = x;
+      win[R + r] = y;
+    }
+  }
+  if (p.window_out) {  // each lane reads back the rows it staged
+    if (c.k == 0) p.window_out[c.b] = T(c.start);
+    for (int f = 0; f < F; ++f)
+      for (int r = c.k; r < R; r += kWarp)
+        p.window_out[(size_t)(1 + f * R + r) * p.B + c.b] = win[f * R + r];
+  }
 }
 
 // Ellipse safety margin of point (qx, qy) against obstacle j at step k
@@ -1020,7 +1125,7 @@ __global__ void __launch_bounds__(kWarp)
   c.S = p.N + 1;
   c.k = lane;
   c.lim = lane <= p.N ? lim.r[lane] : 1;
-  const int N = p.N, S = c.S, M = p.M, R = p.R;
+  const int N = p.N, S = c.S, M = p.M;
   c.sm = dynamic_smem<T>();
   // road-border bounds and inflated ellipse axes (src/utils.cpp:387-393,
   // ego disc radius = width / 2)
@@ -1031,9 +1136,6 @@ __global__ void __launch_bounds__(kWarp)
   const T eb = T(0.5) * w.width + w.d_safe + T(0.5) * w.width;
   c.ell_a2 = ea * ea;
   c.ell_b2 = eb * eb;
-  // the dot form's query is centred on this scenario's window row 0
-  c.q0x = p.proj_dot ? c.at(p.rx, 0) : T(0);
-  c.q0y = p.proj_dot ? c.at(p.ry, 0) : T(0);
   if constexpr (A) {  // the solve updates its duals in place in mu_out
     c.a = alm;
     const int rows = (8 + 2 * M) * N;
@@ -1041,11 +1143,9 @@ __global__ void __launch_bounds__(kWarp)
       alm.mu_out[(size_t)r * p.B + b] = alm.mu_in[(size_t)r * p.B + b];
     c.rho = alm.rho_in[b];
   }
-  // stage the searched window rows and the obstacle predictions
+  // stage the window and the obstacle predictions
+  stage_window(c);
   {
-    const T* src[3] = {p.proj_dot ? p.pcr : p.rx, p.proj_dot ? p.pnx : p.ry, p.pny};
-    for (int f = 0; f < window_fields(p.proj_dot); ++f)
-      for (int r = lane; r < R; r += kWarp) c.win()[f * R + r] = c.at(src[f], r);
     T* o = c.obs();
     const int MS = M * S;
     for (int e = lane; e < MS; e += kWarp) {
@@ -1200,21 +1300,22 @@ int launch_variant(const Weights<T>& w, const RowLimits& lim, const Problem<T>& 
 }
 
 template <typename T>
-int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T* rx,
-           const T* ry, const T* ryaw, const T* ox, const T* oy, const T* oyaw, const T* mu_in,
-           const T* rho_in, const T* stats_in, T* u_out, T* x_out, T* stats_out, T* mu_out,
-           T* rho_out, const T* pcr, const T* pnx, const T* pny, T* fold_s, int* fold_i, int B,
-           int N, int M, int W, int max_iter, int it0, int n_alphas, int gravity, int alm,
-           int proj_dot, int proj_fold, int ls_chunk, int shared_bytes, cudaStream_t stream) {
+int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T* line,
+           const T* ox, const T* oy, const T* oyaw, const T* mu_in, const T* rho_in,
+           const T* stats_in, T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out,
+           T* fold_s, int* fold_i, T* window_out, int B, int N, int M, int W, int P, int w_back,
+           int line_bs, int max_iter, int it0, int n_alphas, int gravity, int alm, int proj_dot,
+           int proj_fold, int ls_chunk, int shared_bytes, cudaStream_t stream) {
   static_assert(sizeof(Weights<T>) == kNumWeights * sizeof(T), "weights layout");
   if (B < 0 || N < 1 || N + 1 > kMaxSteps || M < 0 || W < 1 || max_iter < 0 || n_alphas < 0)
+    return cudaErrorInvalidValue;
+  if (!line || P < 1 || w_back < 0 || (line_bs != 0 && line_bs != 1))
     return cudaErrorInvalidValue;
   if (it0 < 0 || (!stats_in && it0 != 0)) return cudaErrorInvalidValue;
   if (alm && !(mu_in && rho_in && mu_out && rho_out)) return cudaErrorInvalidValue;
   if ((proj_dot != 0 && proj_dot != 1) || (proj_fold != 0 && proj_fold != 1) || ls_chunk < 0 ||
       ls_chunk > kMaxChunk)
     return cudaErrorInvalidValue;
-  if (proj_dot && !(pcr && pnx && pny)) return cudaErrorInvalidValue;
   if (proj_fold && !(fold_s && fold_i)) return cudaErrorInvalidValue;
   Weights<T> w;
   std::memcpy(&w, wts, sizeof(w));
@@ -1229,10 +1330,10 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
   // file's count
   if (shared_bytes != warp_bytes<T>(N, M, R, ls_chunk, proj_dot)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const Problem<T> p = {x0,       uinit,  rx,     ry,        ryaw,      ox,       oy,
-                        oyaw,     u_out,  x_out,  stats_out, pcr,       pnx,      pny,
-                        fold_s,   fold_i, B,      N,         M,         W,        R,
-                        max_iter, n_alphas, proj_dot, proj_fold, ls_chunk};
+  const Problem<T> p = {x0,     uinit,  line,       ox,       oy,       oyaw,   u_out,
+                        x_out,  stats_out, fold_s,  fold_i,   window_out, B,    N,
+                        M,      W,      R,          max_iter, n_alphas, P,      w_back,
+                        line_bs, line_bs ? B : 1, proj_dot, proj_fold, ls_chunk};
   const AlmArgs<T> a = {mu_in, rho_in, mu_out, rho_out, wts[kNumWeights],
                         wts[kNumWeights + 1], wts[kNumWeights + 2]};
   const int sb = shared_bytes;
@@ -1271,25 +1372,27 @@ int occupancy(int gravity, int alm, int shared_bytes, int* blocks) {
 // Plain C entry points (bound with ctypes). `wts` and `limits` are host
 // arrays: kNumWeights + kNumAlmWeights scalars in _WEIGHT_ORDER and N+1 row
 // limits; every other pointer is device memory (the four dual pointers may
-// be null when alm == 0, the dot-form terms when proj_dot == 0, the fold
-// scratch when proj_fold == 0). `stats_in` (6, B), or null, selects the
-// resume entry, which runs iterations [it0, max_iter); it0 is 0 without it.
+// be null when alm == 0, the fold scratch when proj_fold == 0, and
+// `window_out` is null but in tests). `line` holds P rows, (3, P) with
+// `line_bs` 0 or (3, P, B) with `line_bs` 1; each solve's window of W rows
+// starts `w_back` rows behind its start's nearest row. `stats_in` (6, B),
+// or null, selects the resume entry, which runs iterations [it0,
+// max_iter); it0 is 0 without it.
 // `gravity` and `alm` pick the instantiation; `proj_dot` and `proj_fold`
 // the projection mode; `ls_chunk` is the line search's chunk width, 0
 // (serial) to kMaxChunk. `shared_bytes` (one scenario's region, a block of
 // one warp) is the wrapper's launch plan. Returns the launch's cudaError_t.
 #define CILQR_ENTRY(NAME, T)                                                                   \
   extern "C" int NAME(const T* wts, const int* limits, const T* x0, const T* uinit,            \
-                      const T* rx, const T* ry, const T* ryaw, const T* ox, const T* oy,       \
-                      const T* oyaw, const T* mu_in, const T* rho_in, const T* stats_in,       \
-                      T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out, const T* pcr,   \
-                      const T* pnx, const T* pny, T* fold_s, int* fold_i, int B, int N, int M, \
-                      int W, int max_iter, int it0, int n_alphas, int gravity, int alm,        \
-                      int proj_dot, int proj_fold, int ls_chunk, int shared_bytes,             \
-                      void* stream) {                                                          \
-    return launch<T>(wts, limits, x0, uinit, rx, ry, ryaw, ox, oy, oyaw, mu_in, rho_in,       \
-                     stats_in, u_out, x_out, stats_out, mu_out, rho_out, pcr, pnx, pny,       \
-                     fold_s, fold_i, B, N, M, W, max_iter, it0, n_alphas, gravity, alm,       \
+                      const T* line, const T* ox, const T* oy, const T* oyaw, const T* mu_in,  \
+                      const T* rho_in, const T* stats_in, T* u_out, T* x_out, T* stats_out,    \
+                      T* mu_out, T* rho_out, T* fold_s, int* fold_i, T* window_out, int B,     \
+                      int N, int M, int W, int P, int w_back, int line_bs, int max_iter,       \
+                      int it0, int n_alphas, int gravity, int alm, int proj_dot,               \
+                      int proj_fold, int ls_chunk, int shared_bytes, void* stream) {           \
+    return launch<T>(wts, limits, x0, uinit, line, ox, oy, oyaw, mu_in, rho_in, stats_in,     \
+                     u_out, x_out, stats_out, mu_out, rho_out, fold_s, fold_i, window_out, B, \
+                     N, M, W, P, w_back, line_bs, max_iter, it0, n_alphas, gravity, alm,      \
                      proj_dot, proj_fold, ls_chunk, shared_bytes,                             \
                      static_cast<cudaStream_t>(stream));                                      \
   }

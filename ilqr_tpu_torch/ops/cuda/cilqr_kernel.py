@@ -20,7 +20,7 @@ settings) are the JAX kernel's:
 
 - ``proj_dot``: score window rows with the dot form ``(p_cr + p_nx x') +
   p_ny y'`` in coordinates centred on each scenario's window row 0, the
-  three window terms computed once per launch (``dot_terms``), instead of
+  three window terms computed once per solve (``dot_terms``), instead of
   the squared distance; same argmin in exact arithmetic, other rounding;
 - ``proj_fold``: reduce the scores with the pair-fold tournament instead
   of the first minimum; other tie-breaking;
@@ -34,17 +34,23 @@ hardware defaults (dot form on, chunks of 4, fold off), on CPU tensors its
 interpret-mode ones (all off), since the plain version plays interpret
 mode's part.
 
+Each scenario's reference-line window is the kernel's own work: it takes
+the line whole -- (3, P) when the batch shares it, as
+``ScenarioSetup.device_scenario`` expands it, else (3, P, B) -- and
+derives the window from the scenario's start, the squared distance's
+first minimum over all P rows (torch.argmin's, NaN first), ``start =
+max(argmin - w_back, 0)`` not clamped to ``P - W``, row indices clamped to
+``P - 1`` so the tail repeats the last sample and first-min ties pin the
+initial projection at row <= w_back. ``window_rows`` is the same
+derivation in plain torch, for the plain version and the thread kernel.
+
 This module holds what the JAX package did outside its kernel, in plain
 torch:
 
-- the per-scenario window gather around the initial nearest index
-  (``pack_problem``). ``start = max(argmin - w_back, 0)`` is not clamped to
-  ``P - W``; indices clamp to ``P - 1``, so the tail repeats the last
-  sample and first-min ties pin the initial projection at row <= w_back.
-  An episode program packs what its ticks share once (``pack_episode``)
-  and builds each tick's problem straight into the packed layout
-  (``tick_problem``: a line shared by the batch is indexed, per-row lines
-  are gathered), bit for bit ``pack_problem``'s and without a host sync;
+- the packing (``pack_problem``). An episode program packs what its ticks
+  share once (``pack_episode``) and builds each tick's problem straight
+  into the packed layout (``tick_problem``), bit for bit ``pack_problem``'s
+  and without a host sync;
 - the obstacle pad to 1e6 when there are no obstacles;
 - the x0 packing ``[x, y, v, yaw, rb_hi, rb_lo, ref_velo, 0]``;
 - the per-step search bounds ``row_limits[k] = min(W, round_up_8(w_back +
@@ -57,17 +63,18 @@ torch:
   way out, as ilqr_tpu/ops/pallas/cilqr_kernel.py:1490-1510, :1664-1675
   drop them).
 
-Packed layout (every array scenario-fastest, ``[row][B]``, as the Pallas
-host packed its lanes): x0 (8, B), uinit (2, N, B), rx/ry/ryaw (W, B),
-ox/oy/oyaw (M, N+1, B), ALM duals mu (C, N, B) and rho (B,); outputs u
-(2, N, B), x (4, N+1, B), stats (6, B) = [iters, status, converged,
-lamb_overflow, final_cost, final_lamb] and, in ALM mode, the final mu and
-rho in the input layout.
+Packed layout (every array with a batch axis scenario-fastest,
+``[row][B]``, as the Pallas host packed its lanes): x0 (8, B), uinit (2,
+N, B), the line's x/y/yaw (3, P) or (3, P, B), ox/oy/oyaw (M, N+1, B), ALM
+duals mu (C, N, B) and rho (B,); outputs u (2, N, B), x (4, N+1, B), stats
+(6, B) = [iters, status, converged, lamb_overflow, final_cost, final_lamb]
+and, in ALM mode, the final mu and rho in the input layout.
 
 ``cilqr_solve_ref`` is the plain version: the eager solver of
-``solvers/cilqr.py`` on the same packed inputs, with the window-restricted
-first-min projection. ``cilqr_solve_cuda`` takes it for CPU tensors only;
-for a CUDA tensor it launches the kernel or raises.
+``solvers/cilqr.py`` on the same packed inputs, on the window
+``window_rows`` derives, with the window-restricted first-min projection.
+``cilqr_solve_cuda`` takes it for CPU tensors only; for a CUDA tensor it
+launches the kernel or raises.
 
 Straggler compaction (``solve_packed``, the host side of
 ilqr_tpu/ops/pallas/cilqr_kernel.py:1596-1644): phase 1 runs every row up
@@ -113,7 +120,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ilqr_tpu_torch.models.bicycle import GRAVITY_CENTER, REAR_CENTER
-from ilqr_tpu_torch.ops.projection import Modes, dot_terms
+from ilqr_tpu_torch.ops.projection import Modes
 from ilqr_tpu_torch.solvers.cilqr import ResumeState, alpha_schedule, solve_from_controls
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
 
@@ -307,13 +314,15 @@ class PackedProblem:
 
     x0: torch.Tensor  # (8, B)
     uinit: torch.Tensor  # (2, N, B)
-    rx: torch.Tensor  # (W, B)
-    ry: torch.Tensor
-    ryaw: torch.Tensor
+    # the reference line's x, y, yaw: (3, P) when every row has the same
+    # line, else (3, P, B); each row's window is derived from it
+    line: torch.Tensor
     ox: torch.Tensor  # (M, N+1, B)
     oy: torch.Tensor
     oyaw: torch.Tensor
     row_limits: tuple  # N+1 ints
+    window: int  # W, the window's rows
+    w_back: int  # window rows behind the start's nearest line row
     # ALM duals in; None is the reference's cold reset (zero mu, rho_init),
     # src/cilqr_solver.cpp:88-93
     mu: Optional[torch.Tensor] = None  # (8 + 2M, N, B)
@@ -336,23 +345,26 @@ class PackedSolution(NamedTuple):
     rho: Optional[torch.Tensor]  # (B,)
 
 
+def line_lanes(ref_line_b, dtype) -> torch.Tensor:
+    """The x, y, yaw of ``ref_line_b`` (B, P, 4) in ``dtype``: (3, P) once
+    when the batch shares the line (stride 0 over it, as
+    ``ScenarioSetup.device_scenario`` expands it, or B = 1), else (3, P,
+    B)."""
+    if ref_line_b.shape[0] == 1 or ref_line_b.stride(0) == 0:
+        return ref_line_b[0, :, :3].to(dtype).T.contiguous()
+    return ref_line_b[..., :3].to(dtype).permute(2, 1, 0).contiguous()
+
+
 def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
                  u_init=None, w_back: int = W_BACK,
                  proj_rows_per_step: int = 0, alm_mu0=None,
                  alm_rho0=None, modes: Modes = Modes()) -> PackedProblem:
-    """Window gather, obstacle pad and packing, in the dtype and on the
-    device of ``x0_b`` (B, 4). ``alm_mu0`` (B, N, C0) and ``alm_rho0`` (B,)
-    seed the duals in ALM mode (ignored otherwise). The initial nearest
-    index is the squared distance's first minimum in every mode, as in the
-    JAX package (ilqr_tpu/ops/pallas/cilqr_kernel.py:1447)."""
+    """Obstacle pad and packing, in the dtype and on the device of ``x0_b``
+    (B, 4); the line goes whole (``line_lanes``), each row's window is
+    derived from it (``window_rows``). ``alm_mu0`` (B, N, C0) and
+    ``alm_rho0`` (B,) seed the duals in ALM mode (ignored otherwise)."""
     dtype, dev = x0_b.dtype, x0_b.device
     B, N, W = x0_b.shape[0], cfg.N, window
-    ref = scenario_b.ref_line.to(dtype)  # (B, P, 4)
-    P = ref.shape[1]
-    d2 = (ref[:, :, 0] - x0_b[:, None, 0]) ** 2 + (ref[:, :, 1] - x0_b[:, None, 1]) ** 2
-    start = torch.clamp_min(torch.argmin(d2, dim=1) - w_back, 0)
-    gidx = torch.clamp_max(start[:, None] + torch.arange(W, device=dev), P - 1)
-    win = torch.gather(ref, 1, gidx[:, :, None].expand(-1, -1, 4))  # (B, W, 4)
     if cfg.num_obstacles == 0:
         obs = torch.full((B, 1, N + 1, 3), 1e6, dtype=dtype, device=dev)
     else:
@@ -377,10 +389,10 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
         return a.permute(*range(1, a.dim()), 0).contiguous()
 
     return PackedProblem(
-        x0=x0_in.contiguous(), uinit=uinit,
-        rx=lanes(win[..., 0]), ry=lanes(win[..., 1]), ryaw=lanes(win[..., 2]),
+        x0=x0_in.contiguous(), uinit=uinit, line=line_lanes(scenario_b.ref_line, dtype),
         ox=lanes(obs[..., 0]), oy=lanes(obs[..., 1]), oyaw=lanes(obs[..., 2]),
-        row_limits=row_limits(N, W, w_back, proj_rows_per_step), mu=mu, rho=rho, modes=modes)
+        row_limits=row_limits(N, W, w_back, proj_rows_per_step), window=W, w_back=w_back,
+        mu=mu, rho=rho, modes=modes)
 
 
 @dataclasses.dataclass
@@ -399,8 +411,8 @@ class PackedEpisode:
     oy: torch.Tensor
     oyaw: torch.Tensor
     sliding: bool  # whether the obstacle rows slide with the tick
-    rows: torch.Tensor  # (W, 1) window row offsets 0..W-1
     steps: torch.Tensor  # (N + 1,) prediction row offsets 0..N
+    window: int
     w_back: int
     row_limits: tuple
     modes: Modes
@@ -419,43 +431,48 @@ def pack_episode(cfg: CILQRConfig, x0_b, ref_line_b, ref_velo_b, obs_full_b, roa
     B, N = x0_b.shape[0], cfg.N
     rb = road_borders_b.to(dtype).expand(B, 2)
     rv = ref_velo_b.to(dtype).reshape(-1).expand(B)
-    if ref_line_b.shape[0] == 1 or ref_line_b.stride(0) == 0:
-        line = ref_line_b[0, :, :3].to(dtype).T.contiguous()  # (3, P)
-    else:
-        line = ref_line_b[..., :3].to(dtype).permute(2, 1, 0).contiguous()  # (3, P, B)
     if cfg.num_obstacles == 0:
         obs = torch.full((3, 1, N + 1, B), 1e6, dtype=dtype, device=dev)
     else:
         obs = obs_full_b.to(dtype).expand(B, -1, -1, -1).permute(3, 1, 2, 0).contiguous()
     return PackedEpisode(
-        x0_rest=torch.stack([rb[:, 0], rb[:, 1], rv, torch.zeros_like(rv)]), line=line,
-        ox=obs[0], oy=obs[1], oyaw=obs[2], sliding=cfg.num_obstacles > 0,
-        rows=torch.arange(window, device=dev)[:, None],
-        steps=torch.arange(N + 1, device=dev), w_back=w_back,
+        x0_rest=torch.stack([rb[:, 0], rb[:, 1], rv, torch.zeros_like(rv)]),
+        line=line_lanes(ref_line_b, dtype), ox=obs[0], oy=obs[1], oyaw=obs[2],
+        sliding=cfg.num_obstacles > 0, steps=torch.arange(N + 1, device=dev),
+        window=window, w_back=w_back,
         row_limits=row_limits(N, window, w_back, proj_rows_per_step), modes=modes)
 
 
-def window_rows(ep: PackedEpisode, ego):
-    """Each row's reference-line window around ``ego`` (4, B), the
-    kernel's (W, B) ``rx``, ``ry`` and ``ryaw``, with no host sync:
-    ``pack_problem``'s window bit for bit (the squared distance's first
-    minimum, the start ``w_back`` rows behind it clamped at 0, indices
-    past P - 1 clamped to it). A shared line is indexed by a (W, B) index;
-    per-row lines are gathered per row."""
-    P = ep.line.shape[1]
-    if ep.line.dim() == 2:
-        d2 = ((ep.line[0][None] - ego[0][:, None]) ** 2
-              + (ep.line[1][None] - ego[1][:, None]) ** 2)  # (B, P)
+def window_start(line, x0, w_back: int):
+    """The line row of each row's window row 0, (B,) int64: ``w_back`` rows
+    behind the first minimum of the squared distance from the start
+    ``x0[0]``, ``x0[1]`` (rows of x0 (>= 2, B)) over the line's P rows
+    (``line`` (3, P) or (3, P, B)), clamped at 0 and not at P - W; the
+    kernel derives the same start. No host sync."""
+    if line.dim() == 2:
+        d2 = ((line[0][None] - x0[0][:, None]) ** 2
+              + (line[1][None] - x0[1][:, None]) ** 2)  # (B, P)
         nearest = torch.argmin(d2, dim=1)
     else:
-        d2 = (ep.line[0] - ego[0]) ** 2 + (ep.line[1] - ego[1]) ** 2  # (P, B)
+        d2 = (line[0] - x0[0]) ** 2 + (line[1] - x0[1]) ** 2  # (P, B)
         nearest = torch.argmin(d2, dim=0)
-    start = torch.clamp_min(nearest - ep.w_back, 0)
-    idx = torch.clamp_max(start + ep.rows, P - 1)  # (W, B)
-    if ep.line.dim() == 2:
-        win = ep.line[:, idx]
+    return torch.clamp_min(nearest - w_back, 0)
+
+
+def window_rows(p: PackedProblem):
+    """Each row's reference-line window of ``p``, the (W, B) x, y and yaw
+    the kernel searches: window row r is line row min(start + r, P - 1)
+    (``window_start``), so the tail repeats the last sample. A shared line
+    is indexed by a (W, B) index; per-row lines are gathered per row. No
+    host sync."""
+    line = p.line
+    start = window_start(line, p.x0, p.w_back)
+    rows = torch.arange(p.window, device=line.device)[:, None]
+    idx = torch.clamp_max(start + rows, line.shape[1] - 1)  # (W, B)
+    if line.dim() == 2:
+        win = line[:, idx]
     else:
-        win = torch.gather(ep.line, 1, idx.expand(3, -1, -1))
+        win = torch.gather(line, 1, idx.expand(3, -1, -1))
     return win[0], win[1], win[2]
 
 
@@ -465,32 +482,33 @@ def tick_problem(ep: PackedEpisode, ego, t, uinit, mu=None, rho=None) -> PackedP
     (4, B), controls ``uinit`` (2, N, B) and, in ALM mode, duals ``mu``
     (8 + 2M, N, B) and ``rho`` (B,) (None: the cold reset). Equal to
     ``pack_problem`` of the same tick bit for bit; makes no host sync."""
-    rx, ry, ryaw = window_rows(ep, ego)
     if ep.sliding:
         at = ep.steps + t
         ox, oy, oyaw = (a.index_select(1, at) for a in (ep.ox, ep.oy, ep.oyaw))
     else:
         ox, oy, oyaw = ep.ox, ep.oy, ep.oyaw
-    return PackedProblem(x0=torch.cat([ego, ep.x0_rest]), uinit=uinit, rx=rx, ry=ry,
-                         ryaw=ryaw, ox=ox, oy=oy, oyaw=oyaw, row_limits=ep.row_limits,
-                         mu=mu, rho=rho, modes=ep.modes)
+    return PackedProblem(x0=torch.cat([ego, ep.x0_rest]), uinit=uinit, line=ep.line, ox=ox,
+                         oy=oy, oyaw=oyaw, row_limits=ep.row_limits, window=ep.window,
+                         w_back=ep.w_back, mu=mu, rho=rho, modes=ep.modes)
 
 
 def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
                     work: Optional[dict] = None,
                     max_iter: Optional[int] = None) -> PackedSolution:
     """Plain version of the kernel: same packed inputs, same outputs, any
-    dtype on any device (the eager solver with the windowed projection, in
-    the problem's modes). Runs iterations [p.it0, max_iter)
-    (``cfg.max_iter`` when None), from ``p.stats`` when given. ``work``
-    receives the solver's rollout, trial and dual-update counts (see
-    ``solve_from_controls``). The kernel runs the sequential Riccati pass
-    and its own windowed projection whatever ``cfg.riccati_impl`` and
-    ``cfg.projection`` say, as the Pallas kernel does, and so does this."""
+    dtype on any device (the eager solver with the windowed projection on
+    ``window_rows``' window, in the problem's modes). Runs iterations
+    [p.it0, max_iter) (``cfg.max_iter`` when None), from ``p.stats`` when
+    given. ``work`` receives the solver's rollout, trial and dual-update
+    counts (see ``solve_from_controls``). The kernel runs the sequential
+    Riccati pass and its own windowed projection whatever
+    ``cfg.riccati_impl`` and ``cfg.projection`` say, as the Pallas kernel
+    does, and so does this."""
     check_scalar_weights(w)
     cfg = dataclasses.replace(cfg, riccati_impl="scan", projection="exact")
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
-    win = torch.stack([p.rx, p.ry, p.ryaw, torch.zeros_like(p.rx)], dim=-1)  # (W,B,4)
+    rx, ry, ryaw = window_rows(p)
+    win = torch.stack([rx, ry, ryaw, torch.zeros_like(rx)], dim=-1)  # (W,B,4)
     obs = torch.stack([p.ox, p.oy, p.oyaw], dim=-1)[:M]  # (M, N+1, B, 3)
     scenario = Scenario(
         ref_line=win.permute(1, 0, 2),
@@ -569,7 +587,7 @@ def bind_kernel(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("cilqr_solve_f32", "cilqr_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 23 + [ci] * 13 + [vp]
+        fn.argtypes = [vp] * 19 + [ci] * 16 + [vp]
         fn.restype = ci
     for name in ("cilqr_occupancy_f32", "cilqr_occupancy_f64"):
         fn = getattr(lib, name)
@@ -638,18 +656,24 @@ def resident_scenarios(cfg: CILQRConfig, dtype: torch.dtype, plan: LaunchPlan) -
 
 def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
     """Raise unless ``p`` is what the kernel takes: contiguous arrays of one
-    floating dtype on one device (those of ``p.x0``) in the packed shapes,
-    N + 1 row limits in [1, W], N + 1 <= MAX_STEPS, duals (when given)
-    of C = 8 + 2M columns, a resume slab (when given) of 6 rows and modes
-    the kernel runs."""
+    floating dtype on one device (those of ``p.x0``) in the packed shapes
+    (the line (3, P) or (3, P, B), P >= 1), N + 1 row limits in [1, W],
+    w_back >= 0, N + 1 <= MAX_STEPS, duals (when given) of C = 8 + 2M
+    columns, a resume slab (when given) of 6 rows and modes the kernel
+    runs."""
     check_modes(p.modes)
     dtype, device = p.x0.dtype, p.x0.device
-    N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
+    N, B, W, M = cfg.N, p.x0.shape[1], p.window, p.ox.shape[0]
     if N + 1 > MAX_STEPS:
         raise ValueError(f"N={N} exceeds the kernel's horizon bound {MAX_STEPS - 1}")
-    shapes = {"x0": (8, B), "uinit": (2, N, B), "rx": (W, B), "ry": (W, B),
-              "ryaw": (W, B), "ox": (M, N + 1, B), "oy": (M, N + 1, B),
-              "oyaw": (M, N + 1, B), "mu": (8 + 2 * M, N, B), "rho": (B,), "stats": (6, B)}
+    P = p.line.shape[1] if p.line.dim() > 1 else 0
+    line = (3, P) if p.line.dim() == 2 else (3, P, B)
+    if P < 1 or p.w_back < 0:
+        raise ValueError(f"line: expected (3, P) or (3, P, B) with P >= 1 and w_back >= 0, "
+                         f"got {tuple(p.line.shape)}, w_back={p.w_back}")
+    shapes = {"x0": (8, B), "uinit": (2, N, B), "line": line, "ox": (M, N + 1, B),
+              "oy": (M, N + 1, B), "oyaw": (M, N + 1, B), "mu": (8 + 2 * M, N, B),
+              "rho": (B,), "stats": (6, B)}
     for name, shape in shapes.items():
         t = getattr(p, name)
         if t is None and name in ("mu", "rho", "stats"):
@@ -668,23 +692,27 @@ class Launch(NamedTuple):
     """One solve's kernel arguments before the launch plan, and its outputs."""
 
     name: str  # ``variant`` (+ ``_resume``)
-    args: tuple  # the C entry's arguments up to ``ls_chunk``
+    args: tuple  # the C entry's arguments up to ``ls_chunk``: ``fields``' values
     keep: tuple  # host arrays the arguments point into
     out: PackedSolution
+    fields: dict  # the arguments by the C entry's parameter names
 
 
 def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
-                   max_iter: Optional[int] = None) -> Launch:
-    """Check ``p`` and allocate the outputs (and the modes' scratch) of a
+                   max_iter: Optional[int] = None, window_out=None) -> Launch:
+    """Check ``p`` and allocate the outputs (and the fold's scratch) of a
     solve of iterations [p.it0, max_iter) (``cfg.max_iter`` when None)
-    on ``p``'s device; return the C entry's arguments. Raises on anything
-    the kernel lacks. Makes no device-to-host copy (the weights come from
-    ``host_weights``), so a launch can be captured in a CUDA graph."""
+    on ``p``'s device; return the C entry's arguments. ``window_out``, a
+    (1 + F R, B) tensor (F = 3 in the dot form, else 2; R the largest row
+    limit) or None, receives each solve's window start and staged rows
+    (tests). Raises on anything the kernel lacks. Makes no device-to-host
+    copy (the weights come from ``host_weights``), so a launch can be
+    captured in a CUDA graph."""
     dtype, dev = p.x0.dtype, p.x0.device
     name = variant(cfg, dtype, p.modes) + ("" if p.stats is None else "_resume")
     _, gravity, alm = instantiation(cfg, dtype, p.modes)
     check_packed(cfg, p)
-    N, B, W, M = cfg.N, p.x0.shape[1], p.rx.shape[0], p.ox.shape[0]
+    N, B, M = cfg.N, p.x0.shape[1], p.ox.shape[0]
     mu_in = rho_in = mu = rho = None
     if alm:
         mu_in = (torch.zeros((8 + 2 * M, N, B), dtype=dtype, device=dev) if p.mu is None
@@ -692,11 +720,9 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
         rho_in = w.alm_rho_init.to(dtype).expand(B).contiguous() if p.rho is None else p.rho
         mu = torch.empty_like(mu_in)
         rho = torch.empty_like(rho_in)
-    # the dot form's window terms, once per launch; the fold's scratch of
-    # ceil(R / 2) scores and row indices per step and scenario
-    pcr = pnx = pny = fold_s = fold_i = None
-    if p.modes.proj_dot:
-        pcr, pnx, pny = dot_terms(p.rx, p.ry, dim=0)
+    # the fold's scratch of ceil(R / 2) scores and row indices per step and
+    # scenario
+    fold_s = fold_i = None
     if p.modes.proj_fold:
         half = (max(p.row_limits) + 1) // 2
         fold_s = torch.empty((half, N + 1, B), dtype=dtype, device=dev)
@@ -710,16 +736,26 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    args = (ctypes.addressof(wts), ctypes.addressof(lims),
-            *(ptr(t) for t in (p.x0, p.uinit, p.rx, p.ry, p.ryaw, p.ox, p.oy, p.oyaw,
-                               mu_in, rho_in, p.stats, u, x, stats, mu, rho,
-                               pcr, pnx, pny, fold_s, fold_i)),
-            B, N, M, W, cfg.max_iter if max_iter is None else max_iter, p.it0,
-            len(alpha_schedule(cfg.min_alpha)), int(gravity), int(alm),
-            int(p.modes.proj_dot), int(p.modes.proj_fold), p.modes.ls_chunk)
+    if window_out is not None:
+        rows = 1 + (3 if p.modes.proj_dot else 2) * max(p.row_limits)
+        if (tuple(window_out.shape) != (rows, B) or window_out.dtype != dtype
+                or window_out.device != dev or not window_out.is_contiguous()):
+            raise ValueError(f"window_out: expected contiguous {(rows, B)} {dtype} on {dev}")
+    fields = dict(
+        wts=ctypes.addressof(wts), limits=ctypes.addressof(lims), x0=ptr(p.x0),
+        uinit=ptr(p.uinit), line=ptr(p.line), ox=ptr(p.ox), oy=ptr(p.oy), oyaw=ptr(p.oyaw),
+        mu_in=ptr(mu_in), rho_in=ptr(rho_in), stats_in=ptr(p.stats), u_out=ptr(u),
+        x_out=ptr(x), stats_out=ptr(stats), mu_out=ptr(mu), rho_out=ptr(rho),
+        fold_s=ptr(fold_s), fold_i=ptr(fold_i), window_out=ptr(window_out), B=B, N=N, M=M,
+        W=p.window, P=p.line.shape[1], w_back=p.w_back, line_bs=int(p.line.dim() == 3),
+        max_iter=cfg.max_iter if max_iter is None else max_iter, it0=p.it0,
+        n_alphas=len(alpha_schedule(cfg.min_alpha)), gravity=int(gravity), alm=int(alm),
+        proj_dot=int(p.modes.proj_dot), proj_fold=int(p.modes.proj_fold),
+        ls_chunk=p.modes.ls_chunk)
     # the inputs and the scratch stay referenced until the launch is enqueued
-    keep = (wts, lims, mu_in, rho_in, pcr, pnx, pny, fold_s, fold_i)
-    return Launch(name, args, keep, PackedSolution(u, x, stats, mu, rho))
+    keep = (wts, lims, mu_in, rho_in, fold_s, fold_i)
+    return Launch(name, tuple(fields.values()), keep, PackedSolution(u, x, stats, mu, rho),
+                  fields)
 
 
 def run_entry(fn, launch: Launch, device, *extra) -> None:
@@ -733,16 +769,16 @@ def run_entry(fn, launch: Launch, device, *extra) -> None:
 
 
 def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
-                       max_iter: Optional[int] = None) -> PackedSolution:
+                       max_iter: Optional[int] = None, window_out=None) -> PackedSolution:
     """Launch the CUDA kernel on packed CUDA tensors for iterations
     [p.it0, max_iter) (``cfg.max_iter`` when None), through its resume
     entry when ``p.stats`` is given, with ``launch_plan``'s shape; returns
-    the solution packed like ``cilqr_solve_ref``'s. Raises on anything the
-    kernel lacks."""
+    the solution packed like ``cilqr_solve_ref``'s. ``window_out`` as in
+    ``prepare_launch``. Raises on anything the kernel lacks."""
     instantiation(cfg, p.x0.dtype, p.modes)  # raises on what no instantiation covers
     if p.x0.device.type != "cuda":
         raise ValueError(f"cilqr_solve_kernel needs CUDA tensors, got {p.x0.device}")
-    launch = prepare_launch(cfg, w, p, max_iter)
+    launch = prepare_launch(cfg, w, p, max_iter, window_out)
     plan = launch_plan(p.x0.shape[1], cfg.N, p.ox.shape[0], max(p.row_limits), p.x0.dtype,
                        p.modes)
     lib = load_library()[0]
@@ -777,12 +813,13 @@ def resume_problem(p: PackedProblem, out: PackedSolution, rows: torch.Tensor,
                    it0: int) -> PackedProblem:
     """Rows ``rows`` of ``p`` as a dense problem that resumes at iteration
     ``it0`` from ``out``, the solution of the phase that stopped there:
-    its controls, stats and (ALM) duals."""
+    its controls, stats and (ALM) duals. What has no batch axis (a shared
+    line) is kept as it is."""
     def take(t):
         return None if t is None else t.index_select(-1, rows)
 
     return dataclasses.replace(
-        p, x0=take(p.x0), uinit=take(out.u), rx=take(p.rx), ry=take(p.ry), ryaw=take(p.ryaw),
+        p, x0=take(p.x0), uinit=take(out.u), line=take(p.line) if p.line.dim() == 3 else p.line,
         ox=take(p.ox), oy=take(p.oy), oyaw=take(p.oyaw), mu=take(out.mu), rho=take(out.rho),
         stats=take(out.stats), it0=it0)
 

@@ -294,7 +294,7 @@ _episodes: "collections.OrderedDict[tuple, _Episode]" = collections.OrderedDict(
 def _episode_key(cfg, w, ep: ck.PackedEpisode, B: int) -> tuple:
     dtype = ep.x0_rest.dtype
     return (cfg, dtype, ep.x0_rest.device, B, tuple(ep.line.shape), tuple(ep.ox.shape),
-            ep.sliding, ep.rows.shape[0], ep.w_back, ep.row_limits, ep.modes,
+            ep.sliding, ep.window, ep.w_back, ep.row_limits, ep.modes,
             tuple(sorted(ck.host_weights(w, dtype)[1].items())))
 
 

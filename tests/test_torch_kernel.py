@@ -82,9 +82,9 @@ def test_search_bounds_match_the_tpu_kernel():
 
 
 def test_pack_problem_window_and_layout():
-    """Window gather around the initial nearest row (start not clamped to
-    P - W, indices clamped to P - 1), the x0 packing, scenario-fastest
-    layout and the obstacle pad."""
+    """The line packed once for the batch, the window derived around the
+    initial nearest row (start not clamped to P - W, indices clamped to
+    P - 1), the x0 packing, scenario-fastest layout and the obstacle pad."""
     _, _, gc, st = load_both("scenario_two_straight")
     cfg = CILQRConfig.from_global_config(gc)
     ref = st.center_lines[0].as_array()
@@ -92,10 +92,14 @@ def test_pack_problem_window_and_layout():
     x0 = t64([[12.0, 0.3, 8.0, 0.01], [ref[P - 5, 0], 0.0, 7.0, 0.0]])
     sc = st.device_scenario(tick=0, dtype=torch.float64, batch=2)
     p = ck.pack_problem(cfg, x0, sc, window=64, w_back=24)
+    np.testing.assert_array_equal(p.line.numpy(), ref[:, :3].T)  # (3, P), once
+    assert (p.window, p.w_back) == (64, 24)
+    rx, _, ryaw = ck.window_rows(p)
     start0 = int(np.argmin((ref[:, 0] - 12.0) ** 2 + (ref[:, 1] - 0.3) ** 2)) - 24
-    np.testing.assert_array_equal(p.rx[:, 0].numpy(), ref[start0:start0 + 64, 0])
+    np.testing.assert_array_equal(rx[:, 0].numpy(), ref[start0:start0 + 64, 0])
     tail = np.minimum(np.arange(P - 5 - 24, P - 5 - 24 + 64), P - 1)
-    np.testing.assert_array_equal(p.ryaw[:, 1].numpy(), ref[tail, 2])
+    np.testing.assert_array_equal(ryaw[:, 1].numpy(), ref[tail, 2])
+    assert ck.window_start(p.line, p.x0, 24).tolist() == [start0, P - 5 - 24]
     np.testing.assert_array_equal(p.x0[:, 0].numpy(), [12.0, 0.3, 8.0, 0.01, 5.4, -1.8, 8.0, 0.0])
     obs = st.obs_preds_array()[:, :cfg.N + 1]
     np.testing.assert_array_equal(p.ox[:, :, 1].numpy(), obs[..., 0])
@@ -131,8 +135,12 @@ def test_kernel_launch_refuses_cpu_tensors_and_missing_variants():
         ck.check_packed(long, p)
     with pytest.raises(ValueError, match="uinit"):
         ck.check_packed(cfg, dataclasses.replace(p, uinit=p.uinit[:, :-1]))
-    with pytest.raises(ValueError, match="rx"):
-        ck.check_packed(cfg, dataclasses.replace(p, rx=p.rx.T.contiguous()))
+    with pytest.raises(ValueError, match="line"):
+        ck.check_packed(cfg, dataclasses.replace(p, line=p.line.T.contiguous()))
+    with pytest.raises(ValueError, match="line"):
+        ck.check_packed(cfg, dataclasses.replace(p, line=p.line[:, :, None].expand(3, -1, 2)))
+    with pytest.raises(ValueError, match="w_back"):
+        ck.check_packed(cfg, dataclasses.replace(p, w_back=-1))
     with pytest.raises(ValueError, match="row_limits"):
         ck.check_packed(cfg, dataclasses.replace(p, row_limits=p.row_limits[:-1]))
     alm = dataclasses.replace(cfg, solve_type="alm")

@@ -46,11 +46,12 @@ def kernel_lib(tmp_path_factory):
     return ck.bind_kernel(ctypes.CDLL(str(so)))
 
 
-def _emulated(lib):
+def _emulated(lib, window_out=None):
     """A ``solve(cfg, w, p, max_iter=)`` over the emulated kernel, as
-    ``ck.cilqr_solve_kernel`` launches the card's."""
+    ``ck.cilqr_solve_kernel`` launches the card's (``window_out`` as
+    there)."""
     def solve(cfg, w, p, max_iter=None):
-        launch = ck.prepare_launch(cfg, w, p, max_iter)
+        launch = ck.prepare_launch(cfg, w, p, max_iter, window_out)
         plan = ck.launch_plan(p.x0.shape[1], cfg.N, p.ox.shape[0], max(p.row_limits),
                               p.x0.dtype, p.modes)
         fn = lib.cilqr_solve_f32 if p.x0.dtype == torch.float32 else lib.cilqr_solve_f64

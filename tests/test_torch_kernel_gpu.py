@@ -202,3 +202,35 @@ def test_warp_kernel_matches_thread_kernel_f64(cuda_device, case):
     torch.cuda.synchronize()
     assert ckt.launches[name] == before + 1
     _same_rows_close(k, thread, cfg.solve_type == "alm")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_kernel_window_start_matches_torch_argmin(cuda_device, dtype):
+    """At the main path's shape (8192 starts of scenario_two_straight,
+    window 384, w_back 24, the derived search bound, the card's modes),
+    each window start the kernel derives equals ``ck.window_start``'s
+    (torch.argmin on the card, over the same line and starts) bit for bit,
+    and so does every staged row (``ck.window_rows``, ``dot_terms``). The
+    line holds planted copies of rows 300 and 301 at rows 345 and 365
+    (tied across lanes and within one) with starts on them, and one start
+    is clamped at row 0."""
+    from ilqr_tpu_torch.ops.projection import dot_terms
+
+    cfg, w, p = packed_cold("scenario_two_straight", 8192, dtype, cuda_device)
+    line = p.line.clone()
+    line[:, 345], line[:, 365] = line[:, 300], line[:, 301]
+    x0 = p.x0.clone()
+    x0[:2, 0], x0[:2, 1], x0[:2, 2] = line[:2, 300], line[:2, 301], line[:2, 5]
+    p = dataclasses.replace(p, x0=x0, line=line)
+    R, F = max(p.row_limits), 3 if p.modes.proj_dot else 2
+    out = torch.empty((1 + F * R, 8192), dtype=dtype, device=cuda_device)
+    ck.cilqr_solve_kernel(cfg, w, p, window_out=out)
+    start = ck.window_start(p.line, p.x0, p.w_back)
+    torch.cuda.synchronize()
+    assert start[:3].tolist() == [300 - 24, 301 - 24, 0]
+    assert torch.equal(out[0], start.to(dtype))
+    rx, ry, _ = (t[:R] for t in ck.window_rows(p))
+    staged = dot_terms(rx, ry, dim=0) if p.modes.proj_dot else (rx, ry)
+    for f, want in enumerate(staged):
+        assert torch.equal(out[1 + f * R:1 + (f + 1) * R], want), f

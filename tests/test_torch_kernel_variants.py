@@ -72,7 +72,8 @@ def test_validate_kernel_inputs_and_gate():
         assert len(anchors[name]["status_rows"]) == 1024
     cfg, w, p = validate_kernel.packed_cold("scenario_three_straight", 4, torch.float64, "cpu")
     ck.check_packed(cfg, p)
-    assert p.ox.shape == (8, cfg.N + 1, 4) and p.rx.shape == (validate_kernel.WINDOW, 4)
+    assert p.ox.shape == (8, cfg.N + 1, 4) and p.window == validate_kernel.WINDOW
+    assert p.line.dim() == 2 and ck.window_rows(p)[0].shape == (validate_kernel.WINDOW, 4)
     assert p.row_limits == ck.row_limits(cfg.N, 384, 24, 10)
     sol = ck.PackedSolution(p.uinit, torch.zeros(4, cfg.N + 1, 4, dtype=torch.float64),
                             torch.tensor([[5.0] * 4, [1.0] * 4, [1.0] * 4, [0.0] * 4,

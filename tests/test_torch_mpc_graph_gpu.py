@@ -119,5 +119,6 @@ def test_window_build_matches_pack_problem(cuda_device):
                       road_borders=rb)
         want = ck.pack_problem(cfg, ego, sc, kw["window"], None, 24, kw["proj_rows_per_step"],
                                modes=modes)
-        for f in ("x0", "uinit", "rx", "ry", "ryaw", "ox", "oy", "oyaw"):
+        for f in ("x0", "uinit", "line", "ox", "oy", "oyaw"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert (got.window, got.w_back) == (want.window, want.w_back)

@@ -262,12 +262,15 @@ def test_tick_problem_bitwise_pack_problem(lines, dtype):
     scenario = Scenario(ref_line=line, ref_velo=sc.ref_velo,
                         obs_preds=obs[:, :, t:t + N + 1], road_borders=sc.road_borders)
     want = ck.pack_problem(cfg, x0, scenario, W, uinit.permute(2, 1, 0), W_BACK, rows)
-    for f in ("x0", "uinit", "rx", "ry", "ryaw", "ox", "oy", "oyaw"):
+    for f in ("x0", "uinit", "line", "ox", "oy", "oyaw"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert got.row_limits == want.row_limits
+    assert (got.row_limits, got.window, got.w_back) == (want.row_limits, W, W_BACK)
+    for a, b in zip(ck.window_rows(got), ck.window_rows(want)):
+        assert torch.equal(a, b)
     P = line.shape[1]
-    assert bool((want.rx[0] == line[:, 0, 0]).any())  # a window from row 0
-    assert bool((want.rx[-1] == line[:, P - 1, 0]).any())  # a tail past P - 1
+    rx = ck.window_rows(want)[0]
+    assert bool((rx[0] == line[:, 0, 0]).any())  # a window from row 0
+    assert bool((rx[-1] == line[:, P - 1, 0]).any())  # a tail past P - 1
 
 
 def _stub_solve(cfg, w, p, max_iter=None, work=None):
@@ -280,7 +283,7 @@ def _stub_solve(cfg, w, p, max_iter=None, work=None):
                      p.x0[3] + 0 * steps])
     stop = ((p.x0[0] * 7).floor() % 2) * (it0 > 0)
     stats = torch.stack([it0 + 1, torch.zeros_like(it0), stop, torch.zeros_like(it0),
-                         p.rx.sum(0) + p.ox.sum((0, 1)), torch.ones_like(it0)])
+                         ck.window_rows(p)[0].sum(0) + p.ox.sum((0, 1)), torch.ones_like(it0)])
     mu = rho = None
     if cfg.solve_type == "alm":
         mu = (torch.zeros((8 + 2 * p.ox.shape[0], N, B), dtype=p.x0.dtype) if p.mu is None
