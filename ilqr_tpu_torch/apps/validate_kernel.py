@@ -63,6 +63,9 @@ CASES = {
     # line searches exhaust: mu moves and rho grows on most rows
     "gravity_alm_duals_move": ("scenario_three_bend", {"solve_type": "alm"},
                                dict(alm_gamma=0.3, max_rho=40.0)),
+    # 8 agents at the published weights, the most of the shipped
+    # scenarios: C = 24 constraint columns
+    "three_straight_barrier": ("scenario_three_straight", {}, {}),
 }
 
 

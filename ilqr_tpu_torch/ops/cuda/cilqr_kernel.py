@@ -92,7 +92,9 @@ entry unchanged; bitwise the same result.
 
 The weights (``host_weights``), the row-limit array and the launch plan
 reach the host once, not per launch, so a launch makes no device-to-host
-copy and a CUDA graph can capture it.
+copy and a CUDA graph can capture it. Each solve notes its plan in
+``utils/counters.py`` (``note_plan``: worked out on the host once a plan,
+no device sync).
 The kernel reads one set of weights a launch, as the Pallas kernel did:
 per-row weights (the eager solver's ``solve_batch(weights_batched=True)``)
 are refused with a ``ValueError`` (``check_scalar_weights``), by the plain
@@ -123,6 +125,7 @@ from ilqr_tpu_torch.models.bicycle import GRAVITY_CENTER, REAR_CENTER
 from ilqr_tpu_torch.ops.projection import Modes
 from ilqr_tpu_torch.solvers.cilqr import ResumeState, alpha_schedule, solve_from_controls
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
+from ilqr_tpu_torch.utils import counters
 
 W_BACK = 64  # window rows behind the ego's initial projection
 # Extra window rows above the per-step search bound (the JAX package's
@@ -505,6 +508,7 @@ def cilqr_solve_ref(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     ``cfg.riccati_impl`` and ``cfg.projection`` say, as the Pallas kernel
     does, and so does this."""
     check_scalar_weights(w)
+    note_plan(cfg, p)
     cfg = dataclasses.replace(cfg, riccati_impl="scan", projection="exact")
     B, N, M = p.x0.shape[1], cfg.N, cfg.num_obstacles
     rx, ry, ryaw = window_rows(p)
@@ -636,6 +640,7 @@ def launch_plan(B: int, N: int, M: int, R: int, dtype: torch.dtype,
     if region > MAX_SHARED_BYTES:
         raise ValueError(f"{region} shared bytes exceed the block's "
                          f"{MAX_SHARED_BYTES} (window rows {R}, obstacles {M})")
+    counters.counts["plans_built"] += 1
     return LaunchPlan(lanes=WARP, step_lane=tuple(range(N + 1)), grid=B, block=WARP,
                       shared_bytes=region)
 
@@ -652,6 +657,28 @@ def resident_scenarios(cfg: CILQRConfig, dtype: torch.dtype, plan: LaunchPlan) -
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError_t {err}")
     return blocks.value
+
+
+def note_plan(cfg: CILQRConfig, p: PackedProblem) -> None:
+    """Record in ``counters.plan`` what K1 runs ``p`` with: the variant,
+    M, the constraint columns 8 + 2M, the rows staged R, the shared bytes
+    of one scenario (``region_bytes``) and, on a CUDA device,
+    ``resident_scenarios`` of its ``launch_plan`` (None elsewhere). Worked
+    out once a plan: a solve whose plan is the one recorded only compares
+    a key. No device sync."""
+    dtype, device = p.x0.dtype, p.x0.device
+    N, M, R = cfg.N, p.ox.shape[0], max(p.row_limits)
+    name = variant(cfg, dtype, p.modes)
+    key = (name, device, N, M, R)
+    if counters.plan_is(key):
+        return
+    resident = None
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            resident = resident_scenarios(
+                cfg, dtype, launch_plan(p.x0.shape[1], N, M, R, dtype, p.modes))
+    counters.record_plan(key, variant=name, agents=M, columns=8 + 2 * M, rows=R,
+                         shared_bytes=region_bytes(N, M, R, dtype, p.modes), resident=resident)
 
 
 def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
@@ -781,6 +808,7 @@ def cilqr_solve_kernel(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     launch = prepare_launch(cfg, w, p, max_iter, window_out)
     plan = launch_plan(p.x0.shape[1], cfg.N, p.ox.shape[0], max(p.row_limits), p.x0.dtype,
                        p.modes)
+    note_plan(cfg, p)
     lib = load_library()[0]
     fn = lib.cilqr_solve_f32 if p.x0.dtype == torch.float32 else lib.cilqr_solve_f64
     run_entry(fn, launch, p.x0.device, plan.shared_bytes)

@@ -19,7 +19,8 @@ state (``new_x.row(1)``, :197) as the next ego state.
   in the kernel's layout, with the carry (ego, shifted-u warm start, ALM
   duals) on the device, captured as a CUDA graph and replayed; on CPU
   tensors the same tick code runs eagerly over the plain version. Tick
-  for tick bitwise ``run_mpc_kernel``'s.
+  for tick bitwise ``run_mpc_kernel``'s. They count their graph captures,
+  replays and ticks in ``utils/counters.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 from ilqr_tpu_torch.ops.cuda.cilqr_kernel import W_BACK, cilqr_solve_cuda, resolve_modes
 from ilqr_tpu_torch.solvers.cilqr import solve
 from ilqr_tpu_torch.types import CILQRConfig, CILQRWeights, Scenario, SolveStats
+from ilqr_tpu_torch.utils import counters
 
 
 def _stack_stats(stats_hist) -> SolveStats:
@@ -260,6 +262,7 @@ class _Episode:
         graph, outs, launched = self.graphs[caps]
         graph.replay()
         ck.launches.update(launched)
+        counters.counts.update(graph_replays=1, episode_ticks=len(caps))
         return outs
 
     def _chain(self, caps):
@@ -283,6 +286,7 @@ class _Episode:
             launched = ck.launches - before
             ck.launches.clear()
             ck.launches.update(before)
+        counters.counts["graph_captures"] += 1
         return graph, outs, launched
 
 
@@ -399,6 +403,7 @@ def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, ref
     caps = _tick_caps(cfg, ticks, straggler_cap, straggler_cap_warm, cold_first_tick)
     if x0_b.device.type == "cpu":
         egos, us, slabs, carry = episode_ticks(cfg, w, ep, x0_b.T, t0, carry, caps)
+        counters.counts["episode_ticks"] += ticks
     else:
         prog = _episode(cfg, w, ep, x0_b.shape[0])
         prog.load(ep, x0_b.T, t0, carry)
@@ -440,6 +445,7 @@ def run_mpc_kernel_chunked(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b, 
             e, u, s, carry = prog.run(caps)
         else:
             e, u, s, carry = episode_ticks(cfg, w, ep, ego, c * chunk, carry, caps)
+            counters.counts["episode_ticks"] += chunk
         rows = slice(c * chunk, (c + 1) * chunk)
         egos[c * chunk + 1: (c + 1) * chunk + 1] = e
         us[rows] = u
