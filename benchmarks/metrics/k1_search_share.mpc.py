@@ -1,0 +1,9 @@
+"""K1's line search (the trials' rollouts, projections and costs, P4-P6)
+as a share of its solves' clocks in the episodes run, % (the port's K1
+record)."""
+
+from benchmarks import k1_record
+
+
+def read(ctx):
+    return k1_record.phase_share(k1_record.SEARCH) if ctx.kind == "mpc_episodes" else None

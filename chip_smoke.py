@@ -508,7 +508,6 @@ def against_plain(cfg, w, p, reps):
     torch.cuda.synchronize()
     ms_r = (time.perf_counter() - t0) * 1e3
     same, errs = differences(k, r, cfg.solve_type == "alm")
-    work["iters"] = int(r.stats[0].sum())
     rec = dict(variant=ck.variant(cfg, p.x0.dtype, p.modes), cfg=cfg, dtype=p.x0.dtype,
                err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
                shape=shape_of(cfg, p), same=same, plain_solution=r)
@@ -553,7 +552,6 @@ def resume_measure(cfg, w, p, caps, reps):
     torch.cuda.synchronize()
     ms_r = (time.perf_counter() - t0) * 1e3
     same, errs = differences(k, r, cfg.solve_type == "alm")
-    work["iters"] = int((r.stats[0] - caps[0]).sum())  # the iterations this phase ran
     return dict(variant=ck.variant(cfg, dtype, p.modes) + "_resume", cfg=cfg, dtype=dtype,
                 err=max(errs.values()), errs=errs, ms=ms_k, plain_ms=ms_r, work=work,
                 shape=shape_of(cfg, sub), rows=int(rows.numel()),

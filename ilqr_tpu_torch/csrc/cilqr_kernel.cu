@@ -92,6 +92,17 @@
 //   (slot, step, scenario) global scratch the wrapper allocates;
 // - chunked line search: chain a in lane a, trials judged in alpha order by
 //   the whole warp.
+//
+// K1's record. Every launch adds to a persistent int64 array of
+// kNumK1Fields (`K1Field`; ops/cuda/cilqr_kernel.py allocates one a device,
+// utils/counters.py reads it): each solve's clocks per phase (P0-P7, read
+// with clock64 at warp-converged marks, every mark closing one phase and
+// opening the next, so the eight sum to the solve's clocks from entry to
+// its last store), its wall nanoseconds (%globaltimer), and counts of
+// solves, launches, iterations, line-search chunks, trials judged and
+// iterations by the status they ended in. Lane f of the warp keeps field f
+// of its solve in a register and adds it with one atomic at the solve's
+// end. Side writes only: the outputs do not depend on them.
 
 #include <cuda_runtime.h>
 
@@ -111,6 +122,38 @@ enum Status {
   kForwardPassFail = 3,
   kForwardPassSmallStep = 4,
 };
+constexpr int kNumStatuses = 5;
+
+// Fields of K1's record, in the order of utils/counters.py:K1_FIELDS; lane
+// f keeps field f of its solve.
+enum K1Field {
+  // phase clocks: P0 staging (the ALM dual copy, the nearest row, the
+  // window, the obstacles, uinit); P1 the initial rollout, projection and
+  // cost (and a resumed solve's stats); P2 `derivatives`; P3 `backward`;
+  // P4 `forward_chunk`; P5 the trials' `project`; P6 the trials'
+  // `total_cost`, verdict and `adopt`; P7 the rest (`dual_update`, the
+  // lambda and status update, the output stores)
+  kStage, kInit, kDeriv, kBackward, kForward, kProject, kCost, kRest,
+  kClocks,   // clocks from the solve's entry to its last store
+  kSolveNs,  // %globaltimer nanoseconds over the same
+  kSolves, kLaunches, kIters, kChunks,
+  kTrials,       // trials judged: projected, costed and given a verdict
+  kStatusFirst,  // + Status: the iterations that ended in each status
+  kNumK1Fields = kStatusFirst + kNumStatuses,
+};
+static_assert(kNumK1Fields <= 32, "a lane a field");
+
+__device__ __forceinline__ unsigned clock32() { return static_cast<unsigned>(clock64()); }
+
+// The card's nanosecond clock. The CPU stand-in for the CUDA runtime that
+// runs this file in the tests (tests/cuda_emulation) brings its own.
+#ifndef CUDA_EMULATION
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
 
 // Field order = _WEIGHT_ORDER in ops/cuda/cilqr_kernel.py.
 template <typename T>
@@ -1111,11 +1154,31 @@ __device__ void dual_update(Ctx<T, G, true>& c, const Step<T>& t) {
 // rho_out), as the stopped solve carried it; iterations, status and lambda
 // come from stats_in, in the stats_out layout. A row that stopped
 // converged or overflowed is passed through unchanged.
+//
+// `totals` is K1's record (`K1Field`), added to at the solve's end.
 template <typename T, bool G, bool A>
 __global__ void __launch_bounds__(kWarp)
     cilqr_solve_kernel(const Weights<T> w, const RowLimits lim, const Problem<T> p,
-                       const AlmArgs<T> alm, const T* __restrict__ stats_in, const int it0) {
+                       const AlmArgs<T> alm, const T* __restrict__ stats_in, const int it0,
+                       unsigned long long* __restrict__ totals) {
   const int lane = threadIdx.x, b = blockIdx.x;
+  // lane f's field f of K1's record for this solve; clocks and nanoseconds
+  // wrap at 2^32, far beyond a solve
+  unsigned tally = lane == kSolves || (lane == kLaunches && b == 0) ? 1u : 0u;
+  unsigned last = clock32();
+  if (lane == kClocks) tally = 0u - last;
+  if (lane == kSolveNs) tally = 0u - static_cast<unsigned>(globaltimer());
+  // close phase `ph` at a point the warp reaches converged (after a
+  // __syncwarp or a shuffle: every lane reads the same clock), lane ph
+  // adding the time since the last mark
+  const auto mark = [&](int ph) {
+    const unsigned now = clock32();
+    if (lane == ph) tally += now - last;
+    last = now;
+  };
+  const auto count = [&](int field) {
+    if (lane == field) ++tally;
+  };
   Ctx<T, G, A> c;
   c.w = w;
   c.p = p;
@@ -1162,6 +1225,7 @@ __global__ void __launch_bounds__(kWarp)
     cur.us[lane] = c.at(p.uinit, N + lane);
   }
   __syncwarp();
+  mark(kStage);
   if (lane == 0) {  // rollout of the initial controls
     T x = c.at(p.x0, 0), y = c.at(p.x0, 1), v = c.at(p.x0, 2), h = c.at(p.x0, 3);
     cur.px[0] = x;
@@ -1197,10 +1261,14 @@ __global__ void __launch_bounds__(kWarp)
     lamb = c.at(stats_in, 5);
     it = converged || overflow ? p.max_iter : it0;
   }
+  mark(kInit);
   for (; it < p.max_iter; ++it) {
     derivatives(c);
+    mark(kDeriv);
     T dV1, dV2;
     const bool pd = backward(c, lamb, dV1, dV2);
+    __syncwarp();  // lane 0 stored the gains
+    mark(kBackward);
     bool accepted = false, conv_now = false, small = false;
     if (pd) {
       // the alphas 1, 1/2, ... in order, rolled out in chunks of ls_chunk
@@ -1215,12 +1283,18 @@ __global__ void __launch_bounds__(kWarp)
       while (t < p.n_alphas && vd == kReject) {
         const int m = min(width, p.n_alphas - t);
         forward_chunk(c, alpha, m);
+        count(kChunks);
+        mark(kForward);
         for (int a = 0; a < m; ++a, ++t, alpha *= T(0.5)) {
           Step<T> s = load_step(c, trial_view(c, a));
           project(c, s);
+          __syncwarp();  // the lanes' scans end apart
+          mark(kProject);
           nJ = total_cost(c, s);
           vd = verdict(w, t, alpha, J, nJ, dV1, dV2);
           if (vd == kAccept) adopt(c, s);
+          count(kTrials);
+          mark(kCost);
           if (vd != kReject) break;
         }
       }
@@ -1259,8 +1333,11 @@ __global__ void __launch_bounds__(kWarp)
       lamb = lamb * w.lamb_decay;
     }
     ++iters;
+    count(kIters);
+    count(kStatusFirst + status);
     overflow = lamb > w.max_lamb;
     converged = conv_now;
+    mark(kRest);
     if (overflow || converged) break;
   }
 
@@ -1285,17 +1362,23 @@ __global__ void __launch_bounds__(kWarp)
     p.stats_out[5 * B + b] = lamb;
     if constexpr (A) alm.rho_out[b] = c.rho;
   }
+  __syncwarp();
+  mark(kRest);
+  if (lane == kClocks) tally += last;
+  if (lane == kSolveNs) tally += static_cast<unsigned>(globaltimer());
+  if (lane < kNumK1Fields && tally)
+    atomicAdd(totals + lane, static_cast<unsigned long long>(tally));
 }
 
 template <typename T, bool G, bool A>
 int launch_variant(const Weights<T>& w, const RowLimits& lim, const Problem<T>& p,
-                   const AlmArgs<T>& alm, const T* stats_in, int it0, int bytes,
-                   cudaStream_t stream) {
+                   const AlmArgs<T>& alm, const T* stats_in, int it0,
+                   unsigned long long* totals, int bytes, cudaStream_t stream) {
   auto kernel = cilqr_solve_kernel<T, G, A>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<p.B, kWarp, bytes, stream>>>(w, lim, p, alm, stats_in, it0);
+  kernel<<<p.B, kWarp, bytes, stream>>>(w, lim, p, alm, stats_in, it0, totals);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1303,12 +1386,14 @@ template <typename T>
 int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T* line,
            const T* ox, const T* oy, const T* oyaw, const T* mu_in, const T* rho_in,
            const T* stats_in, T* u_out, T* x_out, T* stats_out, T* mu_out, T* rho_out,
-           T* fold_s, int* fold_i, T* window_out, int B, int N, int M, int W, int P, int w_back,
-           int line_bs, int max_iter, int it0, int n_alphas, int gravity, int alm, int proj_dot,
-           int proj_fold, int ls_chunk, int shared_bytes, cudaStream_t stream) {
+           T* fold_s, int* fold_i, T* window_out, long long* totals, int B, int N, int M, int W,
+           int P, int w_back, int line_bs, int max_iter, int it0, int n_alphas, int gravity,
+           int alm, int proj_dot, int proj_fold, int ls_chunk, int shared_bytes,
+           cudaStream_t stream) {
   static_assert(sizeof(Weights<T>) == kNumWeights * sizeof(T), "weights layout");
   if (B < 0 || N < 1 || N + 1 > kMaxSteps || M < 0 || W < 1 || max_iter < 0 || n_alphas < 0)
     return cudaErrorInvalidValue;
+  if (!totals) return cudaErrorInvalidValue;
   if (!line || P < 1 || w_back < 0 || (line_bs != 0 && line_bs != 1))
     return cudaErrorInvalidValue;
   if (it0 < 0 || (!stats_in && it0 != 0)) return cudaErrorInvalidValue;
@@ -1337,12 +1422,13 @@ int launch(const T* wts, const int* limits, const T* x0, const T* uinit, const T
   const AlmArgs<T> a = {mu_in, rho_in, mu_out, rho_out, wts[kNumWeights],
                         wts[kNumWeights + 1], wts[kNumWeights + 2]};
   const int sb = shared_bytes;
+  const auto tot = reinterpret_cast<unsigned long long*>(totals);
   if (gravity) {
-    return alm ? launch_variant<T, true, true>(w, lim, p, a, stats_in, it0, sb, stream)
-               : launch_variant<T, true, false>(w, lim, p, a, stats_in, it0, sb, stream);
+    return alm ? launch_variant<T, true, true>(w, lim, p, a, stats_in, it0, tot, sb, stream)
+               : launch_variant<T, true, false>(w, lim, p, a, stats_in, it0, tot, sb, stream);
   }
-  return alm ? launch_variant<T, false, true>(w, lim, p, a, stats_in, it0, sb, stream)
-             : launch_variant<T, false, false>(w, lim, p, a, stats_in, it0, sb, stream);
+  return alm ? launch_variant<T, false, true>(w, lim, p, a, stats_in, it0, tot, sb, stream)
+             : launch_variant<T, false, false>(w, lim, p, a, stats_in, it0, tot, sb, stream);
 }
 
 // Blocks (scenarios) resident on one SM at `shared_bytes` a block.
@@ -1373,7 +1459,8 @@ int occupancy(int gravity, int alm, int shared_bytes, int* blocks) {
 // arrays: kNumWeights + kNumAlmWeights scalars in _WEIGHT_ORDER and N+1 row
 // limits; every other pointer is device memory (the four dual pointers may
 // be null when alm == 0, the fold scratch when proj_fold == 0, and
-// `window_out` is null but in tests). `line` holds P rows, (3, P) with
+// `window_out` is null but in tests; `totals`, K1's record of kNumK1Fields
+// int64, is not). `line` holds P rows, (3, P) with
 // `line_bs` 0 or (3, P, B) with `line_bs` 1; each solve's window of W rows
 // starts `w_back` rows behind its start's nearest row. `stats_in` (6, B),
 // or null, selects the resume entry, which runs iterations [it0,
@@ -1386,14 +1473,15 @@ int occupancy(int gravity, int alm, int shared_bytes, int* blocks) {
   extern "C" int NAME(const T* wts, const int* limits, const T* x0, const T* uinit,            \
                       const T* line, const T* ox, const T* oy, const T* oyaw, const T* mu_in,  \
                       const T* rho_in, const T* stats_in, T* u_out, T* x_out, T* stats_out,    \
-                      T* mu_out, T* rho_out, T* fold_s, int* fold_i, T* window_out, int B,     \
-                      int N, int M, int W, int P, int w_back, int line_bs, int max_iter,       \
-                      int it0, int n_alphas, int gravity, int alm, int proj_dot,               \
-                      int proj_fold, int ls_chunk, int shared_bytes, void* stream) {           \
+                      T* mu_out, T* rho_out, T* fold_s, int* fold_i, T* window_out,            \
+                      long long* totals, int B, int N, int M, int W, int P, int w_back,        \
+                      int line_bs, int max_iter, int it0, int n_alphas, int gravity, int alm,  \
+                      int proj_dot, int proj_fold, int ls_chunk, int shared_bytes,             \
+                      void* stream) {                                                          \
     return launch<T>(wts, limits, x0, uinit, line, ox, oy, oyaw, mu_in, rho_in, stats_in,     \
-                     u_out, x_out, stats_out, mu_out, rho_out, fold_s, fold_i, window_out, B, \
-                     N, M, W, P, w_back, line_bs, max_iter, it0, n_alphas, gravity, alm,      \
-                     proj_dot, proj_fold, ls_chunk, shared_bytes,                             \
+                     u_out, x_out, stats_out, mu_out, rho_out, fold_s, fold_i, window_out,    \
+                     totals, B, N, M, W, P, w_back, line_bs, max_iter, it0, n_alphas, gravity, \
+                     alm, proj_dot, proj_fold, ls_chunk, shared_bytes,                        \
                      static_cast<cudaStream_t>(stream));                                      \
   }
 

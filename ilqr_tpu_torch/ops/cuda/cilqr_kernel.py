@@ -94,7 +94,10 @@ The weights (``host_weights``), the row-limit array and the launch plan
 reach the host once, not per launch, so a launch makes no device-to-host
 copy and a CUDA graph can capture it. Each solve notes its plan in
 ``utils/counters.py`` (``note_plan``: worked out on the host once a plan,
-no device sync).
+no device sync), and every launch adds its solves' phase clocks and
+counts to K1's record there (``k1_record``: one int64 tensor a device,
+allocated at the device's first launch and never again, so a captured
+graph's launches add to the same tensor at every replay).
 The kernel reads one set of weights a launch, as the Pallas kernel did:
 per-row weights (the eager solver's ``solve_batch(weights_batched=True)``)
 are refused with a ``ValueError`` (``check_scalar_weights``), by the plain
@@ -591,7 +594,7 @@ def bind_kernel(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("cilqr_solve_f32", "cilqr_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 19 + [ci] * 16 + [vp]
+        fn.argtypes = [vp] * 20 + [ci] * 16 + [vp]
         fn.restype = ci
     for name in ("cilqr_occupancy_f32", "cilqr_occupancy_f64"):
         fn = getattr(lib, name)
@@ -663,22 +666,39 @@ def note_plan(cfg: CILQRConfig, p: PackedProblem) -> None:
     """Record in ``counters.plan`` what K1 runs ``p`` with: the variant,
     M, the constraint columns 8 + 2M, the rows staged R, the shared bytes
     of one scenario (``region_bytes``) and, on a CUDA device,
-    ``resident_scenarios`` of its ``launch_plan`` (None elsewhere). Worked
-    out once a plan: a solve whose plan is the one recorded only compares
-    a key. No device sync."""
+    ``resident_scenarios`` of its ``launch_plan`` and the card's SMs (None
+    elsewhere). Worked out once a plan: a solve whose plan is the one
+    recorded only compares a key. No device sync."""
     dtype, device = p.x0.dtype, p.x0.device
     N, M, R = cfg.N, p.ox.shape[0], max(p.row_limits)
     name = variant(cfg, dtype, p.modes)
     key = (name, device, N, M, R)
     if counters.plan_is(key):
         return
-    resident = None
+    resident = sms = None
     if device.type == "cuda":
         with torch.cuda.device(device):
             resident = resident_scenarios(
                 cfg, dtype, launch_plan(p.x0.shape[1], N, M, R, dtype, p.modes))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
     counters.record_plan(key, variant=name, agents=M, columns=8 + 2 * M, rows=R,
-                         shared_bytes=region_bytes(N, M, R, dtype, p.modes), resident=resident)
+                         shared_bytes=region_bytes(N, M, R, dtype, p.modes), resident=resident,
+                         sms=sms)
+
+
+def k1_record(device) -> torch.Tensor:
+    """K1's record on ``device`` (``counters.k1_records``), the int64
+    tensor of ``counters.K1_FIELDS`` every launch there adds to: allocated
+    zeroed at the device's first launch, which a graph capture must not
+    be, and kept for the life of the process."""
+    device = torch.device(device)
+    record = counters.k1_records.get(device)
+    if record is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K1's record must exist before a graph captures a launch")
+        record = torch.zeros(len(counters.K1_FIELDS), dtype=torch.int64, device=device)
+        counters.k1_records[device] = record
+    return record
 
 
 def check_packed(cfg: CILQRConfig, p: PackedProblem) -> None:
@@ -732,9 +752,10 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
     on ``p``'s device; return the C entry's arguments. ``window_out``, a
     (1 + F R, B) tensor (F = 3 in the dot form, else 2; R the largest row
     limit) or None, receives each solve's window start and staged rows
-    (tests). Raises on anything the kernel lacks. Makes no device-to-host
-    copy (the weights come from ``host_weights``), so a launch can be
-    captured in a CUDA graph."""
+    (tests). The launch adds to ``k1_record`` of ``p``'s device. Raises on
+    anything the kernel lacks. Makes no device-to-host copy (the weights
+    come from ``host_weights``), so a launch can be captured in a CUDA
+    graph."""
     dtype, dev = p.x0.dtype, p.x0.device
     name = variant(cfg, dtype, p.modes) + ("" if p.stats is None else "_resume")
     _, gravity, alm = instantiation(cfg, dtype, p.modes)
@@ -773,7 +794,8 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
         uinit=ptr(p.uinit), line=ptr(p.line), ox=ptr(p.ox), oy=ptr(p.oy), oyaw=ptr(p.oyaw),
         mu_in=ptr(mu_in), rho_in=ptr(rho_in), stats_in=ptr(p.stats), u_out=ptr(u),
         x_out=ptr(x), stats_out=ptr(stats), mu_out=ptr(mu), rho_out=ptr(rho),
-        fold_s=ptr(fold_s), fold_i=ptr(fold_i), window_out=ptr(window_out), B=B, N=N, M=M,
+        fold_s=ptr(fold_s), fold_i=ptr(fold_i), window_out=ptr(window_out),
+        totals=ptr(k1_record(dev)), B=B, N=N, M=M,
         W=p.window, P=p.line.shape[1], w_back=p.w_back, line_bs=int(p.line.dim() == 3),
         max_iter=cfg.max_iter if max_iter is None else max_iter, it0=p.it0,
         n_alphas=len(alpha_schedule(cfg.min_alpha)), gravity=int(gravity), alm=int(alm),

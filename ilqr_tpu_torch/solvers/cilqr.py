@@ -54,6 +54,7 @@ from ilqr_tpu_torch.types import (
     numpy_dtype,
     per_row,
 )
+from ilqr_tpu_torch.utils.counters import K1_STATUSES
 from ilqr_tpu_torch.utils.refline import ReferenceLine, RoutingLine
 
 __all__ = [
@@ -117,7 +118,8 @@ def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
     (``_forward_chunk``; alphas past the last are not rolled out) and then
     judges them one alpha at a time in order, as the serial search does.
     ``work["trials"]`` counts the rollouts, ``work["evals"]`` the trials
-    projected and costed, both over the rows still searching."""
+    projected and costed and ``work["chunks"]`` the chunks rolled out (a
+    trial each when serial), all over the rows still searching."""
     done = ~searching
     acc = torch.zeros_like(done)
     conv = torch.zeros_like(done)
@@ -131,6 +133,7 @@ def _line_search(cfg, w, u, x, d, K, ori_cost, dV1, dV2, scenario, alm_rho,
             break
         chunk = alphas[t0:t0 + width]
         if work is not None:
+            work["chunks"] += int((~done).sum())
             work["trials"] += len(chunk) * int((~done).sum())
         if ls_chunk:
             chunk_u, chunk_x = _forward_chunk(cfg, w, u, x, d, K, chunk)
@@ -193,9 +196,12 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     (src/cilqr_solver.cpp:88-93). A ``work`` dict gets the counts of what
     each row needed, summed over rows: ``trials`` (line-search rollouts),
     ``evals`` (trials projected and costed; equal to ``trials`` unless the
-    line search runs in chunks) and ``dual_updates`` (ALM dual steps); the
-    iterations are in the returned stats. ``modes`` are the fused solve's
-    projection mode and line-search chunk width (``ops/projection.py``).
+    line search runs in chunks), ``chunks`` (the line search's chunks),
+    ``dual_updates`` (ALM dual steps), ``iters`` (the iterations this call
+    ran) and, under the names of ``utils/counters.py:K1_STATUSES``, the
+    iterations that ended in each status: the tally K1 keeps in its record.
+    ``modes`` are the fused solve's projection mode and line-search chunk
+    width (``ops/projection.py``).
 
     The loop runs iterations [0, max_iter) (``cfg.max_iter`` when None),
     or [resume.it0, max_iter) from a ``resume`` state: u0 is then the
@@ -204,7 +210,7 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
     same values), so a capped solve resumed here equals one uncapped solve.
     """
     if work is not None:
-        for key in ("trials", "evals", "dual_updates"):
+        for key in ("trials", "evals", "chunks", "dual_updates", "iters", *K1_STATUSES):
             work.setdefault(key, 0)
     if cfg.riccati_impl not in ("scan", "pscan"):
         raise ValueError(f"unknown riccati_impl {cfg.riccati_impl!r}")
@@ -264,6 +270,10 @@ def solve_from_controls(cfg: CILQRConfig, w: CILQRWeights, x0, u0, scenario: Sce
                                                 code(SolveStatus.FORWARD_PASS_SMALL_STEP),
                                                 code(SolveStatus.RUNNING)))))
         status = torch.where(active, new_status, status)
+        if work is not None:
+            work["iters"] += int(active.sum())
+            for value, name in enumerate(K1_STATUSES):
+                work[name] += int((active & (new_status == value)).sum())
 
         if alm:
             if work is not None:

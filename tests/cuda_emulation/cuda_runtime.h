@@ -6,10 +6,15 @@
 // card with a full mask), one block at a time, a block's dynamic shared
 // memory filled with NaN bytes. Rounding: each product and sum rounds on
 // its own (build with -ffp-contract=off), as the kernel's -fmad=false
-// build does on the card.
+// build does on the card. Clocks: clock64() counts the calling thread's
+// reads (so lanes that read at the same marks read the same values, and a
+// span between two marks counts the marks in it), and globaltimer() stands
+// for %globaltimer with the host's monotonic nanoseconds.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstring>
 #include <thread>
@@ -74,6 +79,18 @@ inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline int __float2int_rn(float a) { return static_cast<int>(std::nearbyint(a)); }
 inline int __double2int_rn(double a) { return static_cast<int>(std::nearbyint(a)); }
+
+inline thread_local long long emu_clock = 0;
+inline long long clock64() { return ++emu_clock; }
+#define CUDA_EMULATION 1
+inline unsigned long long globaltimer() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*a).fetch_add(v);
+}
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

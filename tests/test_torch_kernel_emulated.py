@@ -27,23 +27,28 @@ HEADERS = Path(__file__).resolve().parent / "cuda_emulation"
 B = 9  # scenarios: nine blocks of one warp
 
 
-@pytest.fixture(scope="module")
-def kernel_lib(tmp_path_factory):
-    """The kernel source built for the host with the emulation header."""
-    src = ck._SOURCE.read_text()
+def build_emulated(src: str, out: Path):
+    """The kernel source ``src`` built for the host with the emulation
+    header in directory ``out``, bound as ``ck.load_library`` binds the
+    card's."""
     smem = ("extern __shared__ __align__(16) unsigned char smem_raw[];\n"
             "  return reinterpret_cast<T*>(smem_raw);")
     assert smem in src
     src = src.replace(smem, "return reinterpret_cast<T*>(emu_smem);")
     src, launches = re.subn(r"(\w+)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", src, flags=re.S)
     assert launches == 1
-    out = tmp_path_factory.mktemp("cuda_emulation")
     (out / "cilqr_kernel.cpp").write_text(src)
     so = out / "libcilqr_emulated.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
                     "-pthread", f"-I{HEADERS}", "-o", str(so), str(out / "cilqr_kernel.cpp")],
                    check=True, capture_output=True, text=True, timeout=600)
     return ck.bind_kernel(ctypes.CDLL(str(so)))
+
+
+@pytest.fixture(scope="module")
+def kernel_lib(tmp_path_factory):
+    """The kernel source built for the host with the emulation header."""
+    return build_emulated(ck._SOURCE.read_text(), tmp_path_factory.mktemp("cuda_emulation"))
 
 
 def _emulated(lib, window_out=None):
