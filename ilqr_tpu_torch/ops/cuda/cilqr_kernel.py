@@ -42,15 +42,15 @@ first minimum over all P rows (torch.argmin's, NaN first), ``start =
 max(argmin - w_back, 0)`` not clamped to ``P - W``, row indices clamped to
 ``P - 1`` so the tail repeats the last sample and first-min ties pin the
 initial projection at row <= w_back. ``window_rows`` is the same
-derivation in plain torch, for the plain version and the thread kernel.
+derivation in plain torch, for the plain version and the tests.
 
 This module holds what the JAX package did outside its kernel, in plain
 torch:
 
-- the packing (``pack_problem``). An episode program packs what its ticks
-  share once (``pack_episode``) and builds each tick's problem straight
-  into the packed layout (``tick_problem``), bit for bit ``pack_problem``'s
-  and without a host sync;
+- the packing, decided in one place: ``pack_episode`` packs what an
+  episode's ticks share once and ``tick_problem`` builds each tick's
+  problem straight into the packed layout, without a host sync; a single
+  solve (``pack_problem``) is tick 0 of its own episode;
 - the obstacle pad to 1e6 when there are no obstacles;
 - the x0 packing ``[x, y, v, yaw, rb_hi, rb_lo, ref_velo, 0]``;
 - the per-step search bounds ``row_limits[k] = min(W, round_up_8(w_back +
@@ -365,40 +365,28 @@ def pack_problem(cfg: CILQRConfig, x0_b, scenario_b: Scenario, window: int,
                  u_init=None, w_back: int = W_BACK,
                  proj_rows_per_step: int = 0, alm_mu0=None,
                  alm_rho0=None, modes: Modes = Modes()) -> PackedProblem:
-    """Obstacle pad and packing, in the dtype and on the device of ``x0_b``
-    (B, 4); the line goes whole (``line_lanes``), each row's window is
-    derived from it (``window_rows``). ``alm_mu0`` (B, N, C0) and
-    ``alm_rho0`` (B,) seed the duals in ALM mode (ignored otherwise)."""
+    """One solve's packed problem from starts ``x0_b`` (B, 4), in their
+    dtype and on their device: tick 0 of the episode ``pack_episode`` packs
+    from ``scenario_b``, whose obstacle predictions hold its N + 1 rows.
+    ``u_init`` (B, N, 2) seeds the controls (None: zeros); ``alm_mu0`` (B,
+    N, C0) and ``alm_rho0`` (B,) seed the duals in ALM mode (ignored
+    otherwise)."""
     dtype, dev = x0_b.dtype, x0_b.device
-    B, N, W = x0_b.shape[0], cfg.N, window
-    if cfg.num_obstacles == 0:
-        obs = torch.full((B, 1, N + 1, 3), 1e6, dtype=dtype, device=dev)
-    else:
-        obs = scenario_b.obs_preds.to(dtype)  # (B, M, N+1, 3)
-    rb = scenario_b.road_borders.to(dtype).expand(B, 2)
-    rv = scenario_b.ref_velo.to(dtype).reshape(-1).expand(B)
-    x0_in = torch.stack([x0_b[:, 0], x0_b[:, 1], x0_b[:, 2], x0_b[:, 3],
-                         rb[:, 0], rb[:, 1], rv, torch.zeros_like(rv)])
+    B, N = x0_b.shape[0], cfg.N
+    ep = pack_episode(cfg, x0_b, scenario_b.ref_line, scenario_b.ref_velo, scenario_b.obs_preds,
+                      scenario_b.road_borders, window, w_back, proj_rows_per_step, modes)
     if u_init is None:
         uinit = torch.zeros((2, N, B), dtype=dtype, device=dev)
     else:
         uinit = u_init.to(dtype).permute(2, 1, 0).contiguous()
     mu = rho = None
     if cfg.solve_type == "alm":
-        if alm_mu0 is not None:
-            mu = torch.zeros((8 + 2 * obs.shape[1], N, B), dtype=dtype, device=dev)
+        if alm_mu0 is not None:  # zero-padded to the kernel's 8 + 2M rows
+            mu = torch.zeros((8 + 2 * ep.ox.shape[0], N, B), dtype=dtype, device=dev)
             mu[:alm_mu0.shape[-1]] = alm_mu0.to(dtype).permute(2, 1, 0)
         if alm_rho0 is not None:
             rho = torch.as_tensor(alm_rho0, dtype=dtype, device=dev).expand(B).contiguous()
-
-    def lanes(a):
-        return a.permute(*range(1, a.dim()), 0).contiguous()
-
-    return PackedProblem(
-        x0=x0_in.contiguous(), uinit=uinit, line=line_lanes(scenario_b.ref_line, dtype),
-        ox=lanes(obs[..., 0]), oy=lanes(obs[..., 1]), oyaw=lanes(obs[..., 2]),
-        row_limits=row_limits(N, W, w_back, proj_rows_per_step), window=W, w_back=w_back,
-        mu=mu, rho=rho, modes=modes)
+    return tick_problem(ep, x0_b[:, :4].T, 0, uinit, mu, rho)
 
 
 @dataclasses.dataclass
@@ -427,12 +415,13 @@ class PackedEpisode:
 def pack_episode(cfg: CILQRConfig, x0_b, ref_line_b, ref_velo_b, obs_full_b, road_borders_b,
                  window: int, w_back: int = W_BACK, proj_rows_per_step: int = 0,
                  modes: Modes = Modes()) -> PackedEpisode:
-    """The tick-invariant part of ``pack_problem`` for episodes from
-    ``x0_b`` (B, 4) over ``ref_line_b`` (B, P, 4) and ``obs_full_b`` (B, M,
-    T, 3), in the dtype and on the device of ``x0_b``: the x0 slab's rows
-    4-7, the line's columns and the obstacles per component. A line
-    expanded over the batch (stride 0, as ``ScenarioSetup.device_scenario``
-    makes it) is kept once."""
+    """What every tick of episodes from ``x0_b`` (B, 4) over ``ref_line_b``
+    (B, P, 4) and ``obs_full_b`` (B, M, T, 3) shares, in the dtype and on
+    the device of ``x0_b``: the x0 slab's rows 4-7, the line's columns
+    (``line_lanes``: a line expanded over the batch, stride 0 as
+    ``ScenarioSetup.device_scenario`` makes it, is kept once), the
+    obstacles per component (the 1e6 pad without obstacles) and the row
+    limits. The one place these parts of the layout are built."""
     dtype, dev = x0_b.dtype, x0_b.device
     B, N = x0_b.shape[0], cfg.N
     rb = road_borders_b.to(dtype).expand(B, 2)
@@ -486,8 +475,8 @@ def tick_problem(ep: PackedEpisode, ego, t, uinit, mu=None, rho=None) -> PackedP
     """The packed problem of the tick whose obstacle predictions start at
     row ``t`` (an int or a 0-d integer tensor), from ego states ``ego``
     (4, B), controls ``uinit`` (2, N, B) and, in ALM mode, duals ``mu``
-    (8 + 2M, N, B) and ``rho`` (B,) (None: the cold reset). Equal to
-    ``pack_problem`` of the same tick bit for bit; makes no host sync."""
+    (8 + 2M, N, B) and ``rho`` (B,) (None: the cold reset). Makes no host
+    sync."""
     if ep.sliding:
         at = ep.steps + t
         ox, oy, oyaw = (a.index_select(1, at) for a in (ep.ox, ep.oy, ep.oyaw))
@@ -739,10 +728,9 @@ class Launch(NamedTuple):
     """One solve's kernel arguments before the launch plan, and its outputs."""
 
     name: str  # ``variant`` (+ ``_resume``)
-    args: tuple  # the C entry's arguments up to ``ls_chunk``: ``fields``' values
+    args: tuple  # the C entry's arguments up to ``ls_chunk``
     keep: tuple  # host arrays the arguments point into
     out: PackedSolution
-    fields: dict  # the arguments by the C entry's parameter names
 
 
 def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
@@ -803,8 +791,7 @@ def prepare_launch(cfg: CILQRConfig, w: CILQRWeights, p: PackedProblem,
         ls_chunk=p.modes.ls_chunk)
     # the inputs and the scratch stay referenced until the launch is enqueued
     keep = (wts, lims, mu_in, rho_in, fold_s, fold_i)
-    return Launch(name, tuple(fields.values()), keep, PackedSolution(u, x, stats, mu, rho),
-                  fields)
+    return Launch(name, tuple(fields.values()), keep, PackedSolution(u, x, stats, mu, rho))
 
 
 def run_entry(fn, launch: Launch, device, *extra) -> None:

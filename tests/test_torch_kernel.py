@@ -84,7 +84,9 @@ def test_search_bounds_match_the_tpu_kernel():
 def test_pack_problem_window_and_layout():
     """The line packed once for the batch, the window derived around the
     initial nearest row (start not clamped to P - W, indices clamped to
-    P - 1), the x0 packing, scenario-fastest layout and the obstacle pad."""
+    P - 1), the x0 packing, scenario-fastest layout, the obstacle pad
+    (M = 1 at 1e6), a line per row, and the ALM seeds (mu zero-padded to
+    8 + 2M rows, rho expanded over the batch)."""
     _, _, gc, st = load_both("scenario_two_straight")
     cfg = CILQRConfig.from_global_config(gc)
     ref = st.center_lines[0].as_array()
@@ -105,7 +107,29 @@ def test_pack_problem_window_and_layout():
     np.testing.assert_array_equal(p.ox[:, :, 1].numpy(), obs[..., 0])
     assert p.uinit.shape == (2, cfg.N, 2) and not p.uinit.any()
     empty = ck.pack_problem(dataclasses.replace(cfg, num_obstacles=0), x0, sc, window=64)
-    assert empty.ox.shape == (1, cfg.N + 1, 2) and bool((empty.oyaw == 1e6).all())
+    assert empty.ox.shape == (1, cfg.N + 1, 2)
+    assert all(bool((a == 1e6).all()) for a in (empty.ox, empty.oy, empty.oyaw))
+    # a line per row, (3, P, B): row 1's line 0.5 m to the side of row 0's
+    lines = sc.ref_line + t64([[[0.0, 0.0, 0.0, 0.0]], [[0.0, 0.5, 0.0, 0.0]]])
+    rowwise = ck.pack_problem(cfg, x0, dataclasses.replace(sc, ref_line=lines), 64, w_back=24)
+    np.testing.assert_array_equal(rowwise.line.numpy(), lines[..., :3].permute(2, 1, 0).numpy())
+    assert ck.window_start(rowwise.line, rowwise.x0, 24).tolist() == [start0, P - 5 - 24]
+    _, ry, _ = ck.window_rows(rowwise)
+    np.testing.assert_array_equal(ry[:, 0].numpy(), ref[start0:start0 + 64, 1])
+    np.testing.assert_array_equal(ry[:, 1].numpy(), lines[1, tail, 1].numpy())
+    # the ALM seeds: the duals' C0 = 8 + 2 * num_obstacles columns, zero-padded
+    # to the kernel's 8 + 2M rows (M = 1 for the pad), rho over the batch
+    for m in (cfg.num_obstacles, 0):
+        alm = dataclasses.replace(cfg, solve_type="alm", num_obstacles=m)
+        mu0 = t64(np.arange(2 * cfg.N * alm.num_constraints).reshape(2, cfg.N, -1) + 1.0)
+        seeded = ck.pack_problem(alm, x0, sc, 64, alm_mu0=mu0, alm_rho0=t64(20.0))
+        rows = 8 + 2 * max(m, 1)
+        assert seeded.mu.shape == (rows, cfg.N, 2) and seeded.mu.is_contiguous()
+        np.testing.assert_array_equal(seeded.mu[:alm.num_constraints].numpy(),
+                                      mu0.permute(2, 1, 0).numpy())
+        assert not seeded.mu[alm.num_constraints:].any()
+        assert seeded.rho.tolist() == [20.0, 20.0]
+        assert ck.pack_problem(alm, x0, sc, 64).mu is None
 
 
 def test_kernel_launch_refuses_cpu_tensors_and_missing_variants():

@@ -186,25 +186,6 @@ def test_kernel_chunked_line_search_bitwise(cuda_device, case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(CASES))
-def test_warp_kernel_matches_thread_kernel_f64(cuda_device, case):
-    """The warp-per-scenario kernel against the thread-per-scenario kernel it
-    replaced, in double on the same packed inputs (batch 256, cold,
-    squared distance, serial search): iterations and statuses equal on >=
-    99% of rows, u, x and the duals within 1e-6 on those rows."""
-    from ilqr_tpu_torch.ops.cuda import cilqr_kernel_thread as ckt
-
-    cfg, w, p = _packed(case, torch.float64, cuda_device, 256)
-    name = ck.variant(cfg, torch.float64)
-    before = ckt.launches[name]
-    k = ck.cilqr_solve_kernel(cfg, w, p)
-    thread = ckt.solve(cfg, w, p)
-    torch.cuda.synchronize()
-    assert ckt.launches[name] == before + 1
-    _same_rows_close(k, thread, cfg.solve_type == "alm")
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 def test_kernel_window_start_matches_torch_argmin(cuda_device, dtype):
     """At the main path's shape (8192 starts of scenario_two_straight,
