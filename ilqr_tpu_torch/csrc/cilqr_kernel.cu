@@ -45,11 +45,13 @@
 //
 // What bounds it on this card: the latency of one scenario's dependent
 // chain -- per iteration the Riccati recursion (~450 operations a step, 30
-// steps) and per trial a rollout (30 steps) and the longest lane's window
-// scan (max row limit, 312 rows on the main path) -- and, across the
-// batch, issue slots: scenarios resident per SM are bounded by registers
-// and shared bytes, and the tick waits for its slowest scenario. Bytes are
-// not the limit: each scenario reads its inputs once.
+// steps) and per trial a rollout (30 steps) and the busiest lane's window
+// scan -- and, across the batch, issue slots: scenarios resident per SM are
+// bounded by registers and shared bytes, and the tick waits for its slowest
+// scenario. Bytes are not the limit: each scenario reads its inputs once.
+// The row limits rise with the step, so lane k shares its scan with lane
+// N - k (`scan_lane`): the busiest lane scores ~180 rows a projection on
+// the main path, not the longest limit's 312.
 //
 // Layout: every input and output array with a batch axis is
 // scenario-fastest ([row][B]), as the plain version packs them; a line the
@@ -98,20 +100,28 @@
 // utils/counters.py reads it): each solve's clocks per phase (P0-P7, read
 // with clock64 at warp-converged marks, every mark closing one phase and
 // opening the next, so the eight sum to the solve's clocks from entry to
-// its last store), its wall nanoseconds (%globaltimer), and counts of
-// solves, launches, iterations, line-search chunks, trials judged and
-// iterations by the status they ended in. Lane f of the warp keeps field f
+// its last store), its wall nanoseconds (%globaltimer), counts of solves,
+// launches, iterations, line-search chunks, trials judged and iterations by
+// the status they ended in, and the rows the busiest lane scores in its
+// projections (`scan_trips`). Lane f of the warp keeps field f
 // of its solve in a register and adds it with one atomic at the solve's
 // end. Side writes only: the outputs do not depend on them.
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstring>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxSteps = kWarp;  // N + 1 <= kMaxSteps: lane k owns step k
+// The launch bounds' resident blocks per SM: a float32 solve asks for 16,
+// which caps it at 128 registers, as many as it uses without spilling (16
+// are resident at M = 3 either way); without the hint ptxas gave some
+// builds 80 registers and spills. A float64 solve asks for 1 (255).
+template <typename T>
+constexpr int kMinResident = sizeof(T) == 4 ? 16 : 1;
 constexpr int kMaxChunk = 8;  // widest line-search chunk
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -139,7 +149,10 @@ enum K1Field {
   kSolves, kLaunches, kIters, kChunks,
   kTrials,       // trials judged: projected, costed and given a verdict
   kStatusFirst,  // + Status: the iterations that ended in each status
-  kNumK1Fields = kStatusFirst + kNumStatuses,
+  // the busiest lane's rows a projection (`scan_lane`), over every
+  // projection of the solve: the warp's trips through the window scan
+  kScanTrips = kStatusFirst + kNumStatuses,
+  kNumK1Fields,
 };
 static_assert(kNumK1Fields <= 32, "a lane a field");
 
@@ -477,11 +490,8 @@ __device__ __forceinline__ void front_rear(const Ctx<T, G, A>& c, T px, T py, T 
 // squared distance, or the dot form (p_cr + p_nx qx) + p_ny qy with the
 // query centred on window row 0 (JAX kernel :280-286, :366-367, :434); both
 // have the same argmin in exact arithmetic. Both rounded op by op.
-template <bool kDot, typename T, bool G, bool A>
-__device__ __forceinline__ T row_score(const Ctx<T, G, A>& c, int r, T qx, T qy) {
-  const T* win = c.win();
-  const int R = c.p.R;
-  const T f0 = win[r], f1 = win[R + r], f2 = kDot ? win[2 * R + r] : T(0);
+template <bool kDot, typename T>
+__device__ __forceinline__ T score(T f0, T f1, T f2, T qx, T qy) {
   if constexpr (kDot) {
     return add_rn(add_rn(f0, mul_rn(f1, qx)), mul_rn(f2, qy));
   } else {
@@ -490,19 +500,126 @@ __device__ __forceinline__ T row_score(const Ctx<T, G, A>& c, int r, T qx, T qy)
   }
 }
 
-// First minimum over rows [0, n) (strict < keeps the first index on ties).
 template <bool kDot, typename T, bool G, bool A>
-__device__ __forceinline__ int first_min(const Ctx<T, G, A>& c, T qx, T qy, int n) {
-  T best = row_score<kDot>(c, 0, qx, qy);
-  int bi = 0;
-  for (int r = 1; r < n; ++r) {
-    const T s = row_score<kDot>(c, r, qx, qy);
-    if (s < best) {
-      best = s;
-      bi = r;
+__device__ __forceinline__ T row_score(const Ctx<T, G, A>& c, int r, T qx, T qy) {
+  const T* win = c.win();
+  const int R = c.p.R;
+  return score<kDot>(win[r], win[R + r], kDot ? win[2 * R + r] : T(0), qx, qy);
+}
+
+// Two T's in one shared-memory load (float2, double2).
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// The scores of window rows r and r + 1 (r even), each field's two rows in
+// one load: the region's window starts on an even element and R is even.
+template <bool kDot, typename T, bool G, bool A>
+__device__ __forceinline__ void row_scores2(const Ctx<T, G, A>& c, int r, T qx, T qy, T& s0,
+                                            T& s1) {
+  using V = typename Pair<T>::type;
+  const T* win = c.win() + r;
+  const int R = c.p.R;
+  const V f0 = *reinterpret_cast<const V*>(win), f1 = *reinterpret_cast<const V*>(win + R);
+  const V f2 = kDot ? *reinterpret_cast<const V*>(win + 2 * R) : V{};
+  s0 = score<kDot>(f0.x, f1.x, f2.x, qx, qy);
+  s1 = score<kDot>(f0.y, f1.y, f2.y, qx, qy);
+}
+
+// A lane's share of a projection's window scan. Lane k's query searches
+// rows [0, lim[k]), and the limits rise with k, so a warp scanning each
+// lane's rows alone runs as long as its longest limit. Lanes k and N - k
+// pair up instead: where their limits a < b differ, the pair's a + b rows
+// split at h = ceil((a + b) / 2) -- the long lane scores its own query on
+// [0, h), the short one its own on [0, a) and then the long lane's on [h,
+// b) -- so each scores about half. Equal limits, the middle step and the
+// lanes past step N split nothing.
+struct ScanLane {
+  int own;      // rows [0, own) of the lane's own query
+  int partner;  // the paired lane, or the lane itself
+  int lo, n;    // rows [lo, lo + n - own) of the partner's query follow
+};
+
+template <typename T, bool G, bool A>
+__device__ __forceinline__ ScanLane scan_lane(const Ctx<T, G, A>& c) {
+  const int k = c.k, j = k <= c.N ? c.N - k : k;
+  const int a = c.lim, b = __shfl_sync(kFull, c.lim, j), h = (a + b + 1) / 2;
+  if (k > c.N) return {0, k, 0, 0};
+  if (a < b) return {a, j, h, a + b - h};
+  const int own = a > b ? h : a;
+  return {own, j, 0, own};
+}
+
+// Each lane's first minimum over rows [0, lim) (strict < keeps the first
+// row on ties), the scan split as `scan_lane` splits it: bit for bit a
+// scan of the lane's rows in order. The first run starts from row 0 (a NaN
+// there pins row 0, a later NaN never wins), the second from no row and
+// +inf; the long lane takes the second run's row only where its score is
+// strictly below its own best, so a tie across the runs goes to the lower
+// row; a lane with no second run (uniform limits) scans its rows alone.
+// One loop over both of the lane's runs, switching query and row base
+// where the first ends: two loops in turn would run the longest first run
+// and then the longest second. U rows a turn, scored before they are
+// compared, two rows a load where U is even; every run's length, its start
+// and R are multiples of U.
+template <int U, bool kDot, typename T, bool G, bool A>
+__device__ __forceinline__ int split_min(const Ctx<T, G, A>& c, const ScanLane& sl, T qx, T qy) {
+  const T px = __shfl_sync(kFull, qx, sl.partner), py = __shfl_sync(kFull, qy, sl.partner);
+  T best = row_score<kDot>(c, 0, qx, qy), best1 = best;
+  int bi = 0, bi1 = 0, base = 0;
+  for (int t = 0; t < sl.n; t += U) {  // row 0 again, which changes nothing
+    if (t == sl.own) {
+      best1 = best;
+      bi1 = bi;
+      best = T(INFINITY);
+      bi = -1;
+      qx = px;
+      qy = py;
+      base = sl.lo - sl.own;
+    }
+    const int r0 = base + t;
+    T s[U];
+    if constexpr (U % 2 == 0) {
+#pragma unroll
+      for (int u = 0; u < U; u += 2) row_scores2<kDot>(c, r0 + u, qx, qy, s[u], s[u + 1]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] = row_score<kDot>(c, r0 + u, qx, qy);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s[u] < best) {
+        best = s[u];
+        bi = r0 + u;
+      }
     }
   }
-  return bi;
+  if (sl.n == sl.own) {  // no second run
+    best1 = best;
+    bi1 = bi;
+    best = T(INFINITY);
+    bi = -1;
+  }
+  const T other = __shfl_sync(kFull, best, sl.partner);
+  const int other_i = __shfl_sync(kFull, bi, sl.partner);
+  return other < best1 ? other_i : bi1;
+}
+
+// Each lane's first minimum over rows [0, lim): 4 rows a turn where every
+// run allows it, else 1.
+template <bool kDot, typename T, bool G, bool A>
+__device__ __forceinline__ int scan_min(const Ctx<T, G, A>& c, T qx, T qy) {
+  const ScanLane sl = scan_lane(c);
+  if (__all_sync(kFull, ((sl.own | sl.n | c.p.R) & 3) == 0))
+    return split_min<4, kDot>(c, sl, qx, qy);
+  return split_min<1, kDot>(c, sl, qx, qy);
 }
 
 // The pair-fold tournament over rows [0, n) (JAX kernel :381-395): while
@@ -546,18 +663,21 @@ __device__ int fold_min(const Ctx<T, G, A>& c, T qx, T qy, int n) {
 }
 
 // Nearest window row of the lane's state over rows [0, lim), in the
-// solve's projection mode; lanes past step N keep their zeros.
+// solve's projection mode, called by the whole warp; lanes past step N
+// keep their zeros. Forced inline at its two calls: a build that left it
+// to the compiler spilled in the f32 rear-center barrier instantiation.
 template <typename T, bool G, bool A>
-__device__ void project(const Ctx<T, G, A>& c, Step<T>& s) {
-  if (c.k > c.N) return;
+__device__ __forceinline__ void project(const Ctx<T, G, A>& c, Step<T>& s) {
   const Problem<T>& p = c.p;
   int bi;
   if (p.proj_fold) {
+    if (c.k > c.N) return;
     bi = p.proj_dot ? fold_min<true>(c, s.px - c.q0x, s.py - c.q0y, c.lim)
                     : fold_min<false>(c, s.px, s.py, c.lim);
   } else {
-    bi = p.proj_dot ? first_min<true>(c, s.px - c.q0x, s.py - c.q0y, c.lim)
-                    : first_min<false>(c, s.px, s.py, c.lim);
+    bi = p.proj_dot ? scan_min<true>(c, s.px - c.q0x, s.py - c.q0y)
+                    : scan_min<false>(c, s.px, s.py);
+    if (c.k > c.N) return;
   }
   s.rx = c.window_row(0, bi);
   s.ry = c.window_row(1, bi);
@@ -1157,7 +1277,7 @@ __device__ void dual_update(Ctx<T, G, true>& c, const Step<T>& t) {
 //
 // `totals` is K1's record (`K1Field`), added to at the solve's end.
 template <typename T, bool G, bool A>
-__global__ void __launch_bounds__(kWarp)
+__global__ void __launch_bounds__(kWarp, kMinResident<T>)
     cilqr_solve_kernel(const Weights<T> w, const RowLimits lim, const Problem<T> p,
                        const AlmArgs<T> alm, const T* __restrict__ stats_in, const int it0,
                        unsigned long long* __restrict__ totals) {
@@ -1244,6 +1364,7 @@ __global__ void __launch_bounds__(kWarp)
   {
     Step<T> s = load_step(c, cur);
     project(c, s);
+    count(kScanTrips);
     adopt(c, s);  // the projection into the current trajectory
   }
   // cost of the current trajectory under the current duals, kept in step
@@ -1288,6 +1409,7 @@ __global__ void __launch_bounds__(kWarp)
         for (int a = 0; a < m; ++a, ++t, alpha *= T(0.5)) {
           Step<T> s = load_step(c, trial_view(c, a));
           project(c, s);
+          count(kScanTrips);
           __syncwarp();  // the lanes' scans end apart
           mark(kProject);
           nJ = total_cost(c, s);
@@ -1361,6 +1483,11 @@ __global__ void __launch_bounds__(kWarp)
     p.stats_out[4 * B + b] = J;
     p.stats_out[5 * B + b] = lamb;
     if constexpr (A) alm.rho_out[b] = c.rho;
+  }
+  {  // the projections counted so far, times the busiest lane's rows
+    const int rows = p.proj_fold ? c.lim : scan_lane(c).n;
+    const unsigned busiest = __reduce_max_sync(kFull, static_cast<unsigned>(rows));
+    if (lane == kScanTrips) tally *= busiest;
   }
   __syncwarp();
   mark(kRest);

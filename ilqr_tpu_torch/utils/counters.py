@@ -43,12 +43,15 @@ from typing import Optional
 # iterations run, the line-search chunks rolled out, the trials judged,
 # and the iterations by the status they ended in: accepted at alpha 1,
 # converged, backward pass failed, line search exhausted, accepted at a
-# smaller alpha.
+# smaller alpha; last, the rows the busiest lane scores a projection, summed
+# over the projections (``scan_trips``: the warp's trips through the window
+# scan, the .cu source's ``scan_lane``; the initial projection and
+# one a trial, so over ``solves`` + ``trials`` it is the trips a projection).
 K1_PHASES = ("p0_stage", "p1_init", "p2_deriv", "p3_backward", "p4_forward", "p5_project",
              "p6_cost", "p7_rest")
 K1_STATUSES = ("accepted_full", "converged", "backward_fail", "ls_exhausted", "accepted_small")
 K1_FIELDS = K1_PHASES + ("clocks", "solve_ns", "solves", "launches", "iters", "chunks",
-                         "trials") + K1_STATUSES
+                         "trials") + K1_STATUSES + ("scan_trips",)
 
 plan: Optional[dict] = None
 counts: collections.Counter = collections.Counter()

@@ -1,15 +1,16 @@
 // CPU stand-in for the CUDA runtime, enough to run the solve kernel's
 // source (ilqr_tpu_torch/csrc/cilqr_kernel.cu) and the repro kernels'
 // (ilqr_tpu_torch/csrc/debug_repros.cu) on the host in tests: one
-// std::thread per CUDA thread, a std::barrier per warp for __syncwarp and
-// the shuffles (every lane of a warp must reach each of them, as on the
-// card with a full mask), one block at a time, a block's dynamic shared
-// memory filled with NaN bytes. Rounding: each product and sum rounds on
-// its own (build with -ffp-contract=off), as the kernel's -fmad=false
-// build does on the card. Clocks: clock64() counts the calling thread's
-// reads (so lanes that read at the same marks read the same values, and a
-// span between two marks counts the marks in it), and globaltimer() stands
-// for %globaltimer with the host's monotonic nanoseconds.
+// std::thread per CUDA thread, a std::barrier per warp for __syncwarp, the
+// shuffles, the votes and the reductions (every lane of a warp must reach
+// each of them, as on the card with a full mask), one block at a time, a
+// block's dynamic shared memory filled with NaN bytes. Rounding: each
+// product and sum rounds on its own (build with -ffp-contract=off), as the
+// kernel's -fmad=false build does on the card. Clocks: clock64() counts
+// the calling thread's reads (so lanes that read at the same marks read
+// the same values, and a span between two marks counts the marks in it),
+// and globaltimer() stands for %globaltimer with the host's monotonic
+// nanoseconds.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -68,6 +69,35 @@ T __shfl_down_sync(unsigned, T v, unsigned d) {
   return emu_exchange(v, src, src < 32);
 }
 
+// every lane's v folded by f in lane order, from init, in every lane (the
+// votes and reductions)
+template <class T, class F>
+T emu_fold(T v, T init, F f) {
+  const int lane = threadIdx.x % 32;
+  std::memcpy(emu_warp->slot[lane], &v, sizeof(T));
+  emu_warp->arrive_and_wait();
+  T r = init;
+  for (int i = 0; i < 32; ++i) {
+    T x;
+    std::memcpy(&x, emu_warp->slot[i], sizeof(T));
+    r = f(r, x);
+  }
+  emu_warp->arrive_and_wait();
+  return r;
+}
+inline int __all_sync(unsigned, int p) {
+  return emu_fold(p != 0, true, [](bool a, bool b) { return a && b; });
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return emu_fold(v, 0u, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+
+struct alignas(8) float2 {
+  float x, y;
+};
+struct alignas(16) double2 {
+  double x, y;
+};
 struct alignas(16) float4 {
   float x, y, z, w;
 };

@@ -1,5 +1,6 @@
 """K1's record -- its solves' clocks by phase and its counts of iterations,
-line-search chunks, trials judged and statuses -- run on the CPU.
+line-search chunks, trials judged, statuses and window-scan trips -- run
+on the CPU.
 
 The CUDA kernel's source is built for the host with the emulation header,
 as ``tests/test_torch_kernel_emulated.py`` builds it. There ``clock64()``
@@ -28,7 +29,8 @@ from ilqr_tpu_torch.apps.validate_kernel import packed_cold
 from ilqr_tpu_torch.ops.cuda import cilqr_kernel as ck
 from ilqr_tpu_torch.solvers.cilqr import alpha_schedule
 from ilqr_tpu_torch.utils import counters
-from tests.test_torch_kernel_emulated import _emulated, build_emulated, kernel_lib  # noqa: F401
+from tests.test_torch_kernel_emulated import (  # noqa: F401
+    _emulated, build_emulated, busiest_rows, kernel_lib)
 
 B = 8
 MODES = ck.Modes(True, 4, False)
@@ -65,9 +67,11 @@ def _run(solve, cfg, w, p, **kw):
     return out, counters.k1_totals()
 
 
-def check_marks(rec: dict) -> None:
+def check_marks(rec: dict, rows: int) -> None:
     """The record of emulated launches: each phase's clocks count the marks
-    that closed it, and the eight phases sum to the solves' clocks."""
+    that closed it, and the eight phases sum to the solves' clocks; the
+    scan's trips are ``rows`` (the busiest lane's, ``busiest_rows``) in
+    each projection, one a solve and one a trial."""
     assert rec["p0_stage"] == rec["p1_init"] == rec["solves"]
     assert rec["p2_deriv"] == rec["p3_backward"] == rec["iters"]
     assert rec["p4_forward"] == rec["chunks"]
@@ -76,9 +80,10 @@ def check_marks(rec: dict) -> None:
     assert sum(rec[ph] for ph in counters.K1_PHASES) == rec["clocks"]
     assert rec["solve_ns"] > 0
     assert sum(rec[s] for s in counters.K1_STATUSES) == rec["iters"]
+    assert rec["scan_trips"] == rows * (rec["solves"] + rec["trials"])
 
 
-def check_against_plain(rec: dict, out, work: dict) -> None:
+def check_against_plain(rec: dict, out, work: dict, rows: int) -> None:
     """The record of one launch of B solves against the plain version's
     tally of the same solves (float64: the same iterates)."""
     assert rec["solves"] == B and rec["launches"] == 1
@@ -87,7 +92,7 @@ def check_against_plain(rec: dict, out, work: dict) -> None:
     assert rec["chunks"] == work["chunks"] and rec["trials"] == work["evals"]
     assert {s: rec[s] for s in counters.K1_STATUSES} == {s: work[s] for s in
                                                         counters.K1_STATUSES}
-    check_marks(rec)
+    check_marks(rec, rows)
 
 
 @pytest.mark.timeout(240)
@@ -101,7 +106,7 @@ def test_record_equals_plain_tally_f64(kernel_lib, shape):
     work = {}
     ref = ck.cilqr_solve_ref(cfg, w, p, work=work)
     assert torch.equal(out.stats[:2], ref.stats[:2])
-    check_against_plain(rec, out, work)
+    check_against_plain(rec, out, work, busiest_rows(p.row_limits))
 
 
 def _bounds(rec: dict, n_alphas: int, width: int) -> None:
@@ -128,10 +133,11 @@ def test_record_iteration_by_iteration_f32(kernel_lib, shape):
     within the statuses' bounds."""
     cfg, w, p = _problem(shape, torch.float32)
     solve = _emulated(kernel_lib)
+    busiest = busiest_rows(p.row_limits)
     one, whole = _run(solve, cfg, w, p)
     assert whole["solves"] == B and whole["launches"] == 1
     assert whole["iters"] == int(one.stats[0].sum())
-    check_marks(whole)
+    check_marks(whole, busiest)
     _bounds(whole, len(alpha_schedule(cfg.min_alpha)), MODES.ls_chunk)
     out, summed = None, dict.fromkeys(COUNTS, 0)
     for it in range(cfg.max_iter):
@@ -144,7 +150,7 @@ def test_record_iteration_by_iteration_f32(kernel_lib, shape):
         status = part.stats[1].round().long()
         assert [rec[s] for s in counters.K1_STATUSES] == torch.bincount(
             status, minlength=len(counters.K1_STATUSES)).tolist()
-        check_marks(rec)
+        check_marks(rec, busiest)
         for key in COUNTS:
             summed[key] += rec[key]
         out = part if out is None else ck.PackedSolution(
@@ -185,10 +191,43 @@ def test_a_skipped_trial_count_fails(tmp_path):
     out, rec = _run(_emulated(lib), cfg, w, p)
     work = {}
     ck.cilqr_solve_ref(cfg, w, p, work=work)
+    rows = busiest_rows(p.row_limits)
     with pytest.raises(AssertionError):
-        check_against_plain(rec, out, work)
+        check_against_plain(rec, out, work, rows)
     with pytest.raises(AssertionError):
-        check_marks(rec)
+        check_marks(rec, rows)
+
+
+# projection modes and limits -> the busiest lane's rows a projection:
+# the split scan at the cells' limits, serial or in chunks, squared or dot
+# form; the fold, which splits nothing (the longest limit); the full
+# window's uniform limits, where nothing splits and each lane scans its
+# own rows
+SCAN_CASES = {
+    "dot_chunks": (MODES, False, 180),
+    "squared_serial": (ck.Modes(), False, 180),
+    "fold": (ck.Modes(True, 4, True), False, 312),
+    "uniform": (MODES, True, 384),
+}
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_trips_in_each_projection_mode(kernel_lib, case):
+    """Float64, two iterations: ``scan_trips`` is the busiest lane's rows
+    (``busiest_rows``, or the longest limit with the fold) times the
+    projections, one a solve and one a trial judged; iterations and
+    statuses equal the plain version's."""
+    modes, uniform, rows = SCAN_CASES[case]
+    cfg, w, p = packed_cold("scenario_two_straight", 4, torch.float64, "cpu", modes=modes)
+    if uniform:
+        p = dataclasses.replace(p, row_limits=ck.row_limits(cfg.N, p.window, p.w_back, 0))
+    assert rows == (max(p.row_limits) if modes.proj_fold else busiest_rows(p.row_limits))
+    out, rec = _run(_emulated(kernel_lib), cfg, w, p, max_iter=2)
+    ref = ck.cilqr_solve_ref(cfg, w, p, max_iter=2)
+    assert torch.equal(out.stats[:2], ref.stats[:2])
+    assert rec["solves"] == 4 and rec["trials"] >= rec["iters"] > 0
+    assert rec["scan_trips"] == rows * (rec["solves"] + rec["trials"])
 
 
 def test_record_allocated_once_and_zeroed_in_place(monkeypatch):

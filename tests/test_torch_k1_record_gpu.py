@@ -20,6 +20,10 @@ from ilqr_tpu_torch.utils import counters
 # must be captured by that test, not replayed from this one's
 BATCH = 192
 CELLS = ["two_straight.mpc", "three_bend.mpc", "three_straight.mpc", "two_straight.sweep"]
+# the busiest lane's rows a projection at each cell's row limits
+# (the .cu source's ``scan_lane``; w_back 24 or 64, 9 or 10 rows a step)
+SCAN_ROWS = {"two_straight.mpc": 180, "three_bend.mpc": 180, "three_straight.mpc": 196,
+             "two_straight.sweep": 220}
 
 
 @pytest.fixture()
@@ -37,9 +41,10 @@ def test_k1_record_at_the_cells_shape(cuda_device, cell, monkeypatch):
     (replays of the captured graphs in the MPC cells): a launch a tick or
     step, BATCH solves each, the iterations its stats sum to, its
     converged rows, statuses that sum to the iterations, and phases that
-    sum to within 1% of the solves' clocks. A traced call then gives
-    every new reader a number: shares in [0, 100], at least one trial an
-    iteration, slot use in (0, 100]."""
+    sum to within 1% of the solves' clocks, and scan trips of the cell's
+    busiest lane in every projection. A traced call then gives every new
+    reader a number: shares in [0, 100], at least one trial an iteration,
+    slot use in (0, 100], the busiest lane's rows."""
     c = harness.load_cell(cell)
     c = c._replace(traffic=dict(c.traffic, batch=BATCH, pool=1))
     runner = harness.runner_for(c, "cuda")
@@ -64,15 +69,18 @@ def test_k1_record_at_the_cells_shape(cuda_device, cell, monkeypatch):
     phases = sum(rec[p] for p in counters.K1_PHASES)
     assert abs(phases - rec["clocks"]) <= 0.01 * rec["clocks"]
     assert all(rec[p] >= 0 for p in counters.K1_PHASES) and rec["solve_ns"] > 0
+    assert rec["scan_trips"] == SCAN_ROWS[cell] * (rec["solves"] + rec["trials"])
 
     trace = tracing.profile([lambda: runner.call(2)], "call", runner.sync)
     ctx = SimpleNamespace(kind=runner.kind, trace=trace)
     for m in c.per_layer:
         name = m["name"]
-        if not name.startswith(("k1_backward", "k1_search", "k1_trials", "k1_slot")):
+        if not name.startswith(("k1_backward", "k1_search", "k1_trials", "k1_slot", "k1_scan")):
             continue
         value = harness.reader(name)(ctx)
-        if "trials" in name:
+        if "scan_trips" in name:
+            assert value == SCAN_ROWS[cell], name
+        elif "trials" in name:
             assert value >= 1, name
         elif "slot_use" in name:
             assert 0 < value <= 100, name

@@ -215,3 +215,63 @@ def test_kernel_window_start_matches_torch_argmin(cuda_device, dtype):
     staged = dot_terms(rx, ry, dim=0) if p.modes.proj_dot else (rx, ry)
     for f, want in enumerate(staged):
         assert torch.equal(out[1 + f * R:1 + (f + 1) * R], want), f
+
+
+
+# the instantiations the cells run, each in its cell's shape: (scenario,
+# warm, w_back); M = 3 but three_straight's 8 agents
+CELL_SHAPES = {
+    "rear_barrier_warm": ("scenario_two_straight", True, 24),
+    "rear_barrier_cold_sweep": ("scenario_two_straight", False, 64),
+    "gravity_barrier_cold": ("scenario_three_bend", False, 24),
+    "gravity_barrier_warm_m8": ("scenario_three_straight", True, 24),
+}
+# every shape on its line, and the S-bend's on a line cut short (on the
+# straight lines a cut that short leaves the barrier costs at 1e11 and
+# more, where float32's sum order parts the kernel from the plain version)
+SCAN_CASES = [(shape, False) for shape in CELL_SHAPES] + [("gravity_barrier_cold", True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cut", SCAN_CASES,
+                         ids=[f"{s}-{'past_line_end' if c else 'line'}" for s, c in SCAN_CASES])
+def test_split_scan_matches_plain_f32(cuda_device, shape, cut):
+    """Float32 in the card's modes at the cells' row limits (window 384,
+    the cell's w_back, the scenario's rows a step), where each
+    projection's scan is split across lanes (a pair's limits differ);
+    warm shapes start from the plain version's controls shifted by a step. ``past_line_end``: the line ends 146 rows past the
+    earliest start's nearest row, so every window's tail repeats the
+    line's last row, tied in every score, from before the pairs' splits
+    through them. One iteration (the initial projection and every trial's
+    of the line search), the kernel against the plain version from the
+    same inputs: over the rows, the 90th percentile of the relative error
+    of u, x and the cost under 1e-4. The emulated kernel reads at most
+    9e-6 in these shapes, and with the long lanes' second runs dropped
+    0.05-3e11 in four of the five. Statuses are not compared: warm starts
+    sit at the line search's thresholds, where float32 flips some. The
+    scan alone is held bit for bit on the card by
+    ``test_torch_kernel_emulated.py::test_scan_split_bitwise_on_card``."""
+    name, warm, w_back = CELL_SHAPES[shape]
+    B = 512
+    cfg, w, p = packed_cold(name, B, torch.float32, cuda_device, modes=ck.Modes(True, 4, False))
+    rows = ck.derive_proj_rows(float(p.x0[6, 0]), float(w.dt))  # the target speed's
+    assert ck.row_limits(cfg.N, p.window, p.w_back, rows) == p.row_limits
+    p = dataclasses.replace(p, w_back=w_back,
+                            row_limits=ck.row_limits(cfg.N, p.window, w_back, rows))
+    if warm:
+        r = ck.cilqr_solve_ref(cfg, w, p)
+        p = dataclasses.replace(p, x0=torch.cat([r.x[:, 1], p.x0[4:]]),
+                                uinit=torch.cat([r.u[:, 1:], r.u[:, -1:]], 1).contiguous())
+    lim = p.row_limits
+    splits = [(a + b + 1) // 2 for a, b in zip(lim, reversed(lim)) if a < b]
+    assert splits
+    if cut:
+        start = ck.window_start(p.line, p.x0, p.w_back)
+        P = int(start.min()) + w_back + 146
+        p = dataclasses.replace(p, line=p.line[:, :P].contiguous())
+        assert int((P - 1 - start).max()) < min(splits)
+    k = ck.cilqr_solve_kernel(cfg, w, p, max_iter=1)
+    r = ck.cilqr_solve_ref(cfg, w, p, max_iter=1)
+    for a, b in ((k.u, r.u), (k.x, r.x), (k.stats[4:5], r.stats[4:5])):
+        err = ((a - b).abs() / (1 + b.abs())).reshape(-1, B).amax(0)
+        assert float(torch.quantile(err.double(), 0.9)) <= 1e-4
